@@ -5,14 +5,21 @@
 Phases, each fatal on failure:
   1. print the card (nvidia-smi), build the CUDA kernels from ops/csrc and
      the host geometry library from native/ (set-up, outside the timings);
+     count the tensor-core (HGMMA) instructions of each kernel with
+     cuobjdump: K1 bf16 must have some;
   2. each kernel against its plain PyTorch version at main-path shapes
-     (max abs error, kernel / plain / library time, bound);
+     (max abs error, kernel / plain / library time, bound; for K2 also the
+     device-only time per call from torch.profiler); K1 bf16 also against
+     folded_udf_mixed_tc, the same math on cuBLAS's tensor cores;
   3. sampling: 1000 DDPM steps of the full-width MDM (random weights from a
      seed), B = 2 — K2 must launch 16 x 1000 times;
   4. extraction: the shipped trained sheet decoder at 256^3 with
      surface_bias="auto" through get_mesh_from_udf — the JAX package's bars
      (tests/test_e2e_fixture.py) and K1 on the path, no plain version;
   5. the unconditional-generation CLI writes an OBJ.
+
+Not in the default run: `--phases build,profile` (where the time goes) and
+`--phases build,bars` (the readings behind K1 bf16's bars).
 
 Prints progress lines, then a `{"kernels": [...]}` line, the nvidia-smi line
 and, last, `{"ok": true, "device": {...}}`. Precision: TF32 is off for
@@ -22,6 +29,7 @@ matmuls and convolutions (float32 reference numerics).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -36,13 +44,19 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "surfd_tpu", "assets", "bench_sheet_decoder.npz")
 PHASES = ("build", "kernels", "sample", "extract", "cli")  # the default run
-EXTRA_PHASES = ("profile",)
+EXTRA_PHASES = ("profile", "bars")
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type.
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 
-K1_SRC = "surfd_tpu_torch/ops/csrc/folded_mlp.cu"
+K1_SRC = {"f32": "surfd_tpu_torch/ops/csrc/folded_mlp.cu",
+          "bf16": "surfd_tpu_torch/ops/csrc/folded_mlp_bf16.cu"}
+# K1 bf16's bars at 2^20 fixture points: max and mean abs against
+# folded_udf_mixed_tc (same math, tensor-core sums) and max abs against
+# folded_udf_mixed_ref (FP32 GEMM sums). PERF.md gives the readings, sound
+# and with planted faults (`--phases bars`), that they were set from.
+K1_BF16_BARS = {"tc_max": 4e-3, "tc_mean": 2e-7, "plain_max": 4e-3}
 K1_TPU = "surfd_tpu/ops/decoder_kernel.py:146 (_decoder_kernel, commit a9ab519^)"
 K2_SRC = "surfd_tpu_torch/ops/csrc/qkv_attention.cu"
 K2_TPU = "surfd_tpu/ops/attention_kernel.py:32 (_attn_kernel, commit a9ab519^)"
@@ -96,8 +110,33 @@ def load_fixture_decoder(dev):
     return dec.to(dev), fx
 
 
+def fixture_points(n: int, seed: int, dev) -> torch.Tensor:
+    return torch.from_numpy(
+        np.random.default_rng(seed).uniform(-1, 1, (n, 3)).astype(np.float32)
+    ).to(dev)
+
+
+def sass_counts(lib: str, opcode: str) -> dict:
+    """Instructions of one opcode in each kernel of a built library."""
+    from surfd_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    r = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {r.stderr.strip()}")
+    counts, fn = {}, None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
-    """Set-up: the CUDA kernels (nvcc) and the host geometry library (g++)."""
+    """Set-up: the CUDA kernels (nvcc) and the host geometry library (g++).
+    Returns the HGMMA count of K1 bf16's kernels."""
     from surfd_tpu_torch import native
     from surfd_tpu_torch.ops import _build
 
@@ -106,14 +145,43 @@ def phase_build():
     _build.load()
     log(f"[build] CUDA kernels in {time.perf_counter() - t0:.1f}s")
     for line in out.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(k in line for k in ("registers", "spill", "wgmma", "warning")) or line.startswith("=="):
             log("[build]   " + line.strip())
+    counts = sass_counts(str(_build.LIB_PATH), "HGMMA")
+    for fn, n in counts.items():
+        log(f"[build] HGMMA {n:5d}  {fn}")
+    hgmma = sum(n for fn, n in counts.items() if "folded_mlp_bf16" in fn)
+    if hgmma == 0:
+        raise RuntimeError("no HGMMA instruction in folded_mlp_bf16: K1 bf16 misses the tensor cores")
     t0 = time.perf_counter()
     native.load()
     log(f"[build] native geometry library in {time.perf_counter() - t0:.1f}s")
+    return hgmma
 
 
-def phase_kernels(dev):
+def device_us_per_call(fn, name: str, calls: int = 200) -> tuple[float, int]:
+    """Device-only time per call of fn, from torch.profiler over `calls`
+    back-to-back calls: the mean time of each kernel whose name holds `name`,
+    summed over those kernels (each launches once per call). Also returns the
+    fewest launches the profiler recorded of any of them, since it can drop
+    events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key and _device_us(e) > 0]
+    if not evts:
+        raise RuntimeError(f"profiler saw no device time for kernels named {name!r}")
+    return sum(_device_us(e) / e.count for e in evts), min(e.count for e in evts)
+
+
+def phase_kernels(dev, hgmma=None):
     """K1 (f32, bf16) and K2 (four shapes, B = 1 and 2) against plain versions."""
     from surfd_tpu_torch.ops import attention_kernel as ak
     from surfd_tpu_torch.ops import decoder_kernel as dk
@@ -123,39 +191,50 @@ def phase_kernels(dev):
     folded = dk.fold_decoder(dec, torch.from_numpy(fx["latent"]).to(dev), fx["max_dist"])
     H, L = folded.hidden, folded.layers
     P = 1 << 20
-    pts = torch.from_numpy(
-        np.random.default_rng(0).uniform(-1, 1, (P, 3)).astype(np.float32)
-    ).to(dev)
+    pts = fixture_points(P, 0, dev)
     macs = 63 * H + L * 2 * H * H + H
-    for prec, tol, plain, lib in (
-        ("f32", 1e-5, lambda: dk.folded_udf_ref(folded, pts),
+    for prec, plain, lib in (
+        ("f32", lambda: dk.folded_udf_ref(folded, pts),
          lambda: dk.folded_udf_ref(folded, pts)),  # cuBLAS f32 chain
-        ("bf16", 2e-4, lambda: dk.folded_udf_mixed_ref(folded, pts),
+        ("bf16", lambda: dk.folded_udf_mixed_ref(folded, pts),
          lambda: dk.folded_udf_ref(folded, pts, torch.bfloat16)),  # cuBLAS bf16 chain
     ):
         got = dk.folded_udf(folded, pts, prec)
         want = plain()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        if not err <= tol:
-            raise RuntimeError(f"K1 {prec}: max abs err {err} > {tol}")
+        extra = {}
+        if prec == "f32":
+            if not err <= 1e-5:
+                raise RuntimeError(f"K1 f32: max abs err {err} > 1e-05")
+            bars = "tol 1e-05"
+        else:
+            tc = (got - dk.folded_udf_mixed_tc(folded, pts)).abs()
+            read = {"tc_max": float(tc.max()), "tc_mean": float(tc.mean()), "plain_max": err}
+            extra = {"tc_max_abs_err": read["tc_max"], "tc_mean_abs_err": read["tc_mean"],
+                     "hgmma": hgmma}
+            over = {k: v for k, v in read.items() if not v <= K1_BF16_BARS[k]}
+            if over:
+                raise RuntimeError(f"K1 bf16: {over} over the bars {K1_BF16_BARS}")
+            bars = ", ".join(f"{k} {v:.3g} (bar {K1_BF16_BARS[k]:.3g})" for k, v in read.items())
         ms = time_ms(lambda: dk.folded_udf(folded, pts, prec), reps=10)
         plain_ms = time_ms(plain, reps=5)
         lib_ms = time_ms(lib, reps=5)
         wbytes = (63 * H + 2 * L * H * H + H) * (4 if prec == "f32" else 2) + (6 * L + 3) * H * 4
         b_ms, b_by = bound(P * 16 + wbytes, 2.0 * macs * P, prec)
         rows.append({
-            "name": f"folded_mlp_{prec}", "route": "cuda", "source": K1_SRC,
+            "name": f"folded_mlp_{prec}", "route": "cuda", "source": K1_SRC[prec],
             "replaces": K1_TPU, "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "shape": f"P={P} H={H} L={L}",
+            "shape": f"P={P} H={H} L={L}", **extra,
         })
-        log(f"[kernels] K1 {prec}: err {err:.3g} (tol {tol:g}) kernel {ms:.3f} ms "
+        log(f"[kernels] K1 {prec}: {bars}; kernel {ms:.3f} ms "
             f"plain {plain_ms:.3f} ms cuBLAS {lib_ms:.3f} ms bound {b_ms:.3f} ms ({b_by})")
     del pts, got, want
 
     heads = 8
     rng = np.random.default_rng(1)
+    k2_calls = {}
     for T, c in K2_SHAPES:
         for B in (1, 2):
             qkv = torch.from_numpy(
@@ -171,10 +250,12 @@ def phase_kernels(dev):
                 continue
             q, k, v = (t.permute(0, 2, 1, 3) for t in
                        qkv.reshape(B, T, heads, 3 * c).split(c, dim=-1))
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+            sdpa = lambda q=q, k=k, v=v: torch.nn.functional.scaled_dot_product_attention(q, k, v)
             ms = time_ms(lambda: ak.qkv_attention(qkv, heads), inner=200)
             plain_ms = time_ms(lambda: ak.qkv_attention_ref(qkv, heads), inner=50)
             lib_ms = time_ms(sdpa, inner=200)
+            k2_calls[f"qkv_attention_T{T}_c{c}"] = (
+                lambda qkv=qkv: ak.qkv_attention(qkv, heads), sdpa)
             flops = B * heads * (4.0 * T * T * c + 5.0 * T * T)
             b_ms, b_by = bound(4.0 * B * T * 4 * heads * c, flops, "f32")
             rows.append({
@@ -186,7 +267,81 @@ def phase_kernels(dev):
             log(f"[kernels] K2 T={T} c={c} B={B}: err {err:.3g} kernel {ms * 1e3:.2f} us "
                 f"plain {plain_ms * 1e3:.2f} us SDPA {lib_ms * 1e3:.2f} us "
                 f"bound {b_ms * 1e3:.3f} us ({b_by})")
-    return rows
+    return rows, k2_calls
+
+
+def k2_device_times(rows, k2_calls):
+    """K2's and SDPA's device-only time per call (torch.profiler), into the
+    K2 rows. Run after the main path, so that no profiler session comes
+    before its timings."""
+    for row in rows:
+        if row["name"] not in k2_calls:
+            continue
+        kern, sdpa = k2_calls[row["name"]]
+        row["device_us"], n_k2 = device_us_per_call(kern, "qkv_attention")
+        # every kernel SDPA launches
+        row["library_device_us"], n_sdpa = device_us_per_call(sdpa, "")
+        log(f"[kernels] {row['name']} device-only: K2 {row['device_us']:.2f} us, "
+            f"SDPA {row['library_device_us']:.2f} us (event-timed {row['ms'] * 1e3:.2f} / "
+            f"{row['library_ms'] * 1e3:.2f} us; launches recorded {n_k2} / {n_sdpa} of 200)")
+
+
+def planted_faults(folded):
+    """Folds edited the way a K1 bf16 bug would act, each to be run through
+    the kernel itself and held to the bars of the unedited fold."""
+    L = folded.layers
+
+    def edit(name, i, fn):
+        t = getattr(folded, name).clone()
+        fn(t[i])
+        return dataclasses.replace(folded, **{name: t, "_bf16": None})
+
+    def swap(w):  # two B-operand core matrices (8 k x 8 n) trade places
+        w[0:8, 0:16] = torch.cat([w[0:8, 8:16], w[0:8, 0:8]], dim=1)
+
+    def ulp(w):  # one weight one bf16 ulp off
+        w[0, 0] = w[0, 0].to(torch.bfloat16).float() * (1 + 2.0 ** -7)
+
+    return [
+        ("one k16 step of one warpgroup skipped", edit("w1", L // 2, lambda w: w[16:32, :128].zero_())),
+        ("two core matrices swapped", edit("w2", L - 1, swap)),
+        ("one bias missed", edit("b2", L - 1, lambda b: b.zero_())),
+        ("one weight one bf16 ulp off", edit("w1", 0, ulp)),
+    ]
+
+
+def phase_bars(dev):
+    """Readings behind K1 bf16's bars (not part of the default run): the
+    kernel against folded_udf_mixed_tc and folded_udf_mixed_ref on the sheet
+    fixture at 2^20 points for three point seeds; then, on seed 0, the two
+    plain versions against each other, the f32 math (no bf16 rounding) and
+    the kernel run on each planted fault."""
+    from surfd_tpu_torch.ops import decoder_kernel as dk
+
+    dec, fx = load_fixture_decoder(dev)
+    folded = dk.fold_decoder(dec, torch.from_numpy(fx["latent"]).to(dev), fx["max_dist"])
+
+    def report(label, got, refs):
+        read = {}
+        for name, ref in refs.items():
+            d = (got - ref).abs()
+            read[f"{name}_max"], read[f"{name}_mean"] = float(d.max()), float(d.mean())
+            log(f"[bars] {label} vs {name}: max {read[name + '_max']!r} "
+                f"mean {read[name + '_mean']!r} above 2e-4 {int((d > 2e-4).sum())}")
+        over = [k for k, bar in K1_BF16_BARS.items() if k in read and not read[k] <= bar]
+        log(f"[bars] {label}: " + (f"over the bars {over}" if over else "within the bars"))
+
+    for seed in (0, 1, 2):
+        pts = fixture_points(1 << 20, seed, dev)
+        refs = {"tc": dk.folded_udf_mixed_tc(folded, pts),
+                "plain": dk.folded_udf_mixed_ref(folded, pts)}
+        report(f"seed {seed} K1 bf16", dk.folded_udf(folded, pts, "bf16"), refs)
+        if seed:
+            continue
+        report("tc", refs["tc"], {"plain": refs["plain"]})
+        report("fault: f32 math", dk.folded_udf_ref(folded, pts), refs)
+        for name, fault in planted_faults(folded):
+            report(f"fault: {name}", dk.folded_udf(fault, pts, "bf16"), refs)
 
 
 def reset_counts():
@@ -375,11 +530,11 @@ def main() -> int:
     card = smi()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t_all = time.perf_counter()
-    rows = []
+    rows, k2_calls, hgmma = [], {}, None
     if "build" in phases:
-        phase_build()
+        hgmma = phase_build()
     if "kernels" in phases:
-        rows = phase_kernels(dev)
+        rows, k2_calls = phase_kernels(dev, hgmma)
     from surfd_tpu_torch.ops import attention_kernel as ak
     from surfd_tpu_torch.ops import decoder_kernel as dk
 
@@ -400,8 +555,11 @@ def main() -> int:
         unused = [r["name"] for r in rows if r["launches"] == 0]
         if unused:
             raise RuntimeError(f"kernels not launched on the main path: {unused}")
+    k2_device_times(rows, k2_calls)
     if "profile" in phases:
         phase_profile(dev)
+    if "bars" in phases:
+        phase_bars(dev)
     if "cli" in phases:
         phase_cli()
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f}s")

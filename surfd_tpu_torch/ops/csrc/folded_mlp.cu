@@ -26,16 +26,12 @@
 // 10.5 MB of f32 weights stay in the 50 MB L2) and A[k][0..31] as eight
 // broadcast float4 loads, one address per warp, for 32 FFMAs.
 //
-// Precision: template on the matmul input type W. With W = float this is the
-// float32 folded decoder. With W = __nv_bfloat16 the matmul inputs (weights
-// and activations) are rounded to bf16 and the products are summed in f32;
-// a bf16 x bf16 product is exact in f32, so FFMA reproduces the retired TPU
-// kernel's MXU math (bf16 inputs, f32 accumulation) up to summation order.
-// The affine/ReLU/sigmoid chain stays in f32 in both. The elementwise
-// affines use explicitly rounded multiply and add (no contraction into FMA)
-// to round as the reference does.
+// Precision: template on the matmul input type W; only W = float, the
+// float32 folded decoder, is instantiated. The bf16-input variant runs on
+// the tensor cores in folded_mlp_bf16.cu. The elementwise affines use
+// explicitly rounded multiply and add (no contraction into FMA) to round as
+// the reference does.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,16 +41,10 @@ constexpr int kTile = 32;  // points per CTA
 
 template <typename W> __device__ __forceinline__ float wload(const W* p);
 template <> __device__ __forceinline__ float wload<float>(const float* p) { return __ldg(p); }
-template <> __device__ __forceinline__ float wload<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
 
 // Round a matmul input to the weight type (identity for float).
 template <typename W> __device__ __forceinline__ float round_in(float x);
 template <> __device__ __forceinline__ float round_in<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_in<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __device__ __forceinline__ float affine_relu(float x, float a, float c) {
   return fmaxf(__fadd_rn(__fmul_rn(x, a), c), 0.0f);
@@ -217,14 +207,4 @@ extern "C" int surfd_folded_mlp_f32(const void* pts, int64_t P, int H, int L, co
                                     float max_dist, void* out, void* stream) {
   return launch<float, true>(pts, P, H, L, w_in, b_in, a1, c1, w1, b1, a2, c2, w2, b2, a_out,
                              c_out, w_out, b_out, max_dist, out, stream);
-}
-
-extern "C" int surfd_folded_mlp_bf16(const void* pts, int64_t P, int H, int L, const void* w_in,
-                                     const void* b_in, const void* a1, const void* c1,
-                                     const void* w1, const void* b1, const void* a2,
-                                     const void* c2, const void* w2, const void* b2,
-                                     const void* a_out, const void* c_out, const void* w_out,
-                                     float b_out, float max_dist, void* out, void* stream) {
-  return launch<__nv_bfloat16, false>(pts, P, H, L, w_in, b_in, a1, c1, w1, b1, a2, c2, w2, b2,
-                                      a_out, c_out, w_out, b_out, max_dist, out, stream);
 }

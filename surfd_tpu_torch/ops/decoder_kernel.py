@@ -8,13 +8,15 @@ CbnDecoder folds into a plain MLP:
     per block: x ← x + W₂ᵀ·relu(a₂⊙(W₁ᵀ·relu(a₁⊙x + c₁) + b₁) + c₂)
     udf = (1 − σ(w_outᵀ·relu(a_out⊙x + c_out) + b_out)) · max_dist
 
-Kernel K1, `ops/csrc/folded_mlp.cu`, evaluates it; it replaces the TPU kernel
-`_decoder_kernel` / `pallas_folded_udf` (surfd_tpu/ops/decoder_kernel.py,
-retired in commit a9ab519). Its plain versions below are the live JAX
-functions `folded_udf` (precision "f32") and `folded_udf_mixed` (precision
-"bf16": bf16 matmul inputs, f32 sums, f32 affine/ReLU chain — the retired
-TPU kernel's own math). The source note in the .cu file says what bounds it
-on an H100 and how the design answers.
+Kernel K1 evaluates it; it replaces the TPU kernel `_decoder_kernel` /
+`pallas_folded_udf` (surfd_tpu/ops/decoder_kernel.py, retired in commit
+a9ab519). Precision "f32" runs `ops/csrc/folded_mlp.cu` (FP32 pipes) and
+matches the live JAX function `folded_udf`; precision "bf16" runs
+`ops/csrc/folded_mlp_bf16.cu` (wgmma tensor cores: bf16 matmul inputs, f32
+sums, f32 affine/ReLU chain — the retired TPU kernel's own math) and matches
+`folded_udf_mixed`. The plain versions below are those two functions. The
+source notes in the .cu files say what bounds each on an H100 and how the
+design answers.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ class FoldedDecoder:
     b_out: torch.Tensor  # (1,)
     max_dist: float
     b_out_value: float = 0.0  # b_out on the host: no device read per launch
-    _bf16: dict = field(default_factory=dict, repr=False)
+    _bf16: PackedBf16 | None = field(default=None, repr=False)
 
     @property
     def hidden(self) -> int:
@@ -58,11 +60,89 @@ class FoldedDecoder:
     def layers(self) -> int:
         return self.w1.shape[0]
 
-    def bf16(self, name: str) -> torch.Tensor:
-        """bf16 copy of a matmul weight, made once."""
-        if name not in self._bf16:
-            self._bf16[name] = getattr(self, name).to(torch.bfloat16).contiguous()
-        return self._bf16[name]
+    def padded(self, width: int) -> FoldedDecoder:
+        """Copy with the hidden width zero-padded to `width`. Zero weights,
+        biases and affines keep every padded unit exactly 0 through each
+        ReLU, so the result does not change."""
+        H = self.hidden
+        if width < H:
+            raise ValueError(f"cannot pad hidden width {H} down to {width}")
+
+        def pad(t: torch.Tensor, *dims: int) -> torch.Tensor:
+            out = t.new_zeros(tuple(width if d in dims else n for d, n in enumerate(t.shape)))
+            out[tuple(slice(0, n) for n in t.shape)] = t
+            return out
+
+        return FoldedDecoder(
+            w_in=pad(self.w_in, 1), b_in=pad(self.b_in, 0),
+            a1=pad(self.a1, 1), c1=pad(self.c1, 1), w1=pad(self.w1, 1, 2), b1=pad(self.b1, 1),
+            a2=pad(self.a2, 1), c2=pad(self.c2, 1), w2=pad(self.w2, 1, 2), b2=pad(self.b2, 1),
+            a_out=pad(self.a_out, 0), c_out=pad(self.c_out, 0), w_out=pad(self.w_out, 0),
+            b_out=self.b_out, max_dist=self.max_dist, b_out_value=self.b_out_value,
+        )
+
+    def packed_bf16(self) -> PackedBf16:
+        """K1 bf16's operands, made once: the width padded to the next
+        `BF16_WIDTHS` entry, matmul weights packed by `pack_kmajor` (w_in
+        with a zero 64th row), w_out in bf16."""
+        if self._bf16 is None:
+            width = next(w for w in BF16_WIDTHS if w >= self.hidden)
+            f = self.padded(width)
+            npass = pass_width(width)
+            w_in = torch.cat([f.w_in, f.w_in.new_zeros(1, width)])
+            self._bf16 = PackedBf16(
+                folded=f,
+                w_in=pack_kmajor(w_in, npass),
+                w1=torch.cat([pack_kmajor(w, npass) for w in f.w1]),
+                w2=torch.cat([pack_kmajor(w, npass) for w in f.w2]),
+                w_out=f.w_out[:, 0].to(torch.bfloat16).contiguous(),
+            )
+        return self._bf16
+
+
+BF16_WIDTHS = (64, 128, 256, 512)  # hidden widths K1 bf16 instantiates
+SLAB_K = 64  # K rows of one weight slab that K1 bf16 streams
+
+
+def pass_width(width: int) -> int:
+    """Output columns of one K1 bf16 pass: both warpgroups, half each."""
+    return min(256, width)
+
+
+def pack_kmajor(w: torch.Tensor, npass: int) -> torch.Tensor:
+    """Pack a (K, N) matmul weight (x @ w) into wgmma's no-swizzle K-major
+    core-matrix layout, as a flat bf16 tensor. K is a multiple of 64, N of
+    `npass`.
+
+    With k = 64·s + 8·kg + kk and n = npass·p + 8·ng + nn (kk, nn < 8), the
+    element w[k, n] lands at
+
+        offset = (p·(K/64) + s)·npass·64 + (8·ng + kg)·64 + 8·nn + kk
+
+    so the slab (p, s) — 64 K rows by the npass columns of pass p — is one
+    contiguous block of npass·128 bytes, stored pass-major, slab-minor in the
+    order the kernel streams them. Inside a slab each core matrix (8 rows of
+    n, 16 bytes of k) is 128 contiguous bytes, ordered [ng][kg]: the
+    descriptor's leading byte offset (next core matrix along K) is 128 bytes
+    and its stride byte offset (next 8 rows of N) is 8·128 = 1024 bytes.
+    """
+    K, N = w.shape
+    if K % SLAB_K or N % npass or npass % 8:
+        raise ValueError(f"cannot pack a ({K}, {N}) weight in passes of {npass}")
+    t = w.to(torch.bfloat16).reshape(K // SLAB_K, 8, 8, N // npass, npass // 8, 8)
+    return t.permute(3, 0, 4, 1, 5, 2).contiguous().reshape(-1)  # [p, s, ng, kg, nn, kk]
+
+
+@dataclass
+class PackedBf16:
+    """K1 bf16's operands: the padded fold (its f32 vectors go to the kernel
+    as they are) and the packed bf16 matmul weights."""
+
+    folded: FoldedDecoder
+    w_in: torch.Tensor  # pack_kmajor of (64, H)
+    w1: torch.Tensor  # L packed (H, H), concatenated
+    w2: torch.Tensor
+    w_out: torch.Tensor  # (H,) bf16
 
 
 @torch.no_grad()
@@ -143,6 +223,26 @@ def folded_udf_mixed_ref(folded: FoldedDecoder, pts: torch.Tensor):
 
 folded_udf_mixed_ref.calls = 0
 
+
+def folded_udf_mixed_tc(folded: FoldedDecoder, pts: torch.Tensor):
+    """`folded_udf_mixed_ref`'s math with each hidden matmul as one bf16
+    GEMM with f32 results (`torch.mm(..., out_dtype=torch.float32)`, CUDA
+    only: cuBLAS on the tensor cores). Its sums run in a tensor-core order,
+    as K1 bf16's do. Every layer rounds its input to bf16, so one f32 ulp
+    between two summation orders can flip a rounding; this version holds
+    K1 bf16 to a far tighter bar than `folded_udf_mixed_ref` can."""
+    f = folded
+    mm = lambda a, w: torch.mm(a.to(torch.bfloat16), w.to(torch.bfloat16),
+                               out_dtype=torch.float32)
+    x = mm(posenc_f32(pts), f.w_in) + f.b_in
+    for i in range(f.layers):
+        h = mm(torch.relu(x * f.a1[i] + f.c1[i]), f.w1[i]) + f.b1[i]
+        h = torch.relu(h * f.a2[i] + f.c2[i])
+        x = x + mm(h, f.w2[i]) + f.b2[i]
+    h = torch.relu(x * f.a_out + f.c_out)
+    logit = _mm_bf16(h, f.w_out)[..., 0] + f.b_out[0]
+    return (1.0 - torch.sigmoid(logit)) * f.max_dist
+
 PRECISIONS = ("f32", "bf16")
 
 
@@ -168,19 +268,20 @@ def folded_udf(folded: FoldedDecoder, pts: torch.Tensor, precision: str = "f32")
         raise ValueError(f"weights on {folded.w_in.device}, points on {pts.device}")
     out = torch.empty(pts.shape[0], device=pts.device, dtype=torch.float32)
     if precision == "f32":
-        mats = [folded.w_in, folded.w1, folded.w2, folded.w_out]
+        f, mats = folded, [folded.w_in, folded.w1, folded.w2, folded.w_out]
         fn = _build.load().surfd_folded_mlp_f32
     else:
-        mats = [folded.bf16(n) for n in ("w_in", "w1", "w2", "w_out")]
+        pk = folded.packed_bf16()
+        f, mats = pk.folded, [pk.w_in, pk.w1, pk.w2, pk.w_out]
         fn = _build.load().surfd_folded_mlp_bf16
     w_in, w1, w2, w_out = (m.contiguous() for m in mats)
     rc = fn(
-        pts.data_ptr(), pts.shape[0], H, L,
-        w_in.data_ptr(), folded.b_in.data_ptr(),
-        folded.a1.data_ptr(), folded.c1.data_ptr(), w1.data_ptr(), folded.b1.data_ptr(),
-        folded.a2.data_ptr(), folded.c2.data_ptr(), w2.data_ptr(), folded.b2.data_ptr(),
-        folded.a_out.data_ptr(), folded.c_out.data_ptr(), w_out.data_ptr(),
-        folded.b_out_value, folded.max_dist, out.data_ptr(),
+        pts.data_ptr(), pts.shape[0], f.hidden, L,
+        w_in.data_ptr(), f.b_in.data_ptr(),
+        f.a1.data_ptr(), f.c1.data_ptr(), w1.data_ptr(), f.b1.data_ptr(),
+        f.a2.data_ptr(), f.c2.data_ptr(), w2.data_ptr(), f.b2.data_ptr(),
+        f.a_out.data_ptr(), f.c_out.data_ptr(), w_out.data_ptr(),
+        f.b_out_value, f.max_dist, out.data_ptr(),
         torch.cuda.current_stream(pts.device).cuda_stream,
     )
     _build.check(rc, "folded_mlp")

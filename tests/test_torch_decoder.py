@@ -156,3 +156,16 @@ def test_folded_udf_rejects_bad_input(pair):
         dk.folded_udf(folded, torch.zeros(8, 4))
     with pytest.raises(ValueError):
         dk.folded_udf(folded, torch.zeros(8, 3, device="meta"))
+
+
+@pytest.mark.parametrize("width", [128, 512])
+def test_padded_mixed_matches_jax(pair, width):
+    """The fold zero-padded to K1 bf16's widths keeps the bf16 plain version
+    on JAX folded_udf_mixed, within the bf16 bar, 1e-4."""
+    _, variables, tdec = pair
+    pts, lat = _data(5)
+    jf = jdk.fold_decoder(jax.tree.map(jnp.asarray, variables), jnp.asarray(lat), MAX_DIST)
+    want = np.asarray(jdk.folded_udf_mixed(jf, jnp.asarray(pts)))
+    folded = dk.fold_decoder(tdec, torch.from_numpy(lat), MAX_DIST).padded(width)
+    got = dk.folded_udf(folded, torch.from_numpy(pts), "bf16").numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
