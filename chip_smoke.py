@@ -10,16 +10,21 @@ Phases, each fatal on failure:
   2. each kernel against its plain PyTorch version at main-path shapes
      (max abs error, kernel / plain / library time, bound; for K2 also the
      device-only time per call from torch.profiler); K1 bf16 also against
-     folded_udf_mixed_tc, the same math on cuBLAS's tensor cores;
+     folded_udf_mixed_tc, the same math on cuBLAS's tensor cores; K2 in
+     both layouts it takes (token-major, and the channel-first view the
+     attention block hands it, which is the one timed);
   3. sampling: 1000 DDPM steps of the full-width MDM (random weights from a
      seed), B = 2 — K2 must launch 16 x 1000 times;
   4. extraction: the shipped trained sheet decoder at 256^3 with
      surface_bias="auto" through get_mesh_from_udf — the JAX package's bars
      (tests/test_e2e_fixture.py) and K1 on the path, no plain version;
-  5. the unconditional-generation CLI writes an OBJ.
+  5. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
+     turns with SDPA's;
+  6. the unconditional-generation CLI writes an OBJ.
 
-Not in the default run: `--phases build,profile` (where the time goes) and
-`--phases build,bars` (the readings behind K1 bf16's bars).
+Not in the default run: `--phases build,profile` (where the time goes, and
+device kernels per DDPM step) and `--phases build,bars` (the readings
+behind K1 bf16's bars).
 
 Prints progress lines, then a `{"kernels": [...]}` line, the nvidia-smi line
 and, last, `{"ok": true, "device": {...}}`. Precision: TF32 is off for
@@ -43,7 +48,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "surfd_tpu", "assets", "bench_sheet_decoder.npz")
-PHASES = ("build", "kernels", "sample", "extract", "cli")  # the default run
+PHASES = ("build", "kernels", "sample", "extract", "host", "cli")  # the default run
 EXTRA_PHASES = ("profile", "bars")
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type.
@@ -79,19 +84,27 @@ def smi() -> str:
 
 def time_ms(fn, reps: int = 20, inner: int = 1) -> float:
     """Median over `reps` of CUDA-event time per call, `inner` calls a rep."""
-    fn()
+    return time_ms_turns([fn], reps, inner)[0]
+
+
+def time_ms_turns(fns, reps: int = 20, inner: int = 1) -> list:
+    """time_ms of each of fns, their reps taken in turns so that all of them
+    see the same host (its speed drifts over a run)."""
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    times = []
+    times = [[] for _ in fns]
     for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(inner):
-            fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / inner)
-    return statistics.median(times)
+        for fn, ts in zip(fns, times):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(inner):
+                fn()
+            e.record()
+            e.synchronize()
+            ts.append(s.elapsed_time(e) / inner)
+    return [statistics.median(ts) for ts in times]
 
 
 def bound(nbytes: float, flops: float, kind: str):
@@ -240,33 +253,44 @@ def phase_kernels(dev, hgmma=None):
             qkv = torch.from_numpy(
                 rng.normal(size=(B, T, 3 * heads * c)).astype(np.float32)
             ).to(dev)
-            got = ak.qkv_attention(qkv, heads)
-            want = ak.qkv_attention_ref(qkv, heads)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            if not err <= 2e-5:
-                raise RuntimeError(f"K2 T={T} c={c} B={B}: max abs err {err} > 2e-5")
+            # the main path's layout: the (B, T, W) view of the conv's (B, W, T) output
+            qkv_cf = qkv.transpose(1, 2).contiguous().transpose(1, 2)
+            errs = {}
+            for layout, x in (("token-major", qkv), ("channel-first", qkv_cf)):
+                got = ak.qkv_attention(x, heads)
+                want = ak.qkv_attention_ref(x, heads)
+                torch.cuda.synchronize()
+                if got.stride() != want.stride():
+                    raise RuntimeError(f"K2 {layout} T={T} c={c} B={B}: output strides "
+                                       f"{got.stride()}, plain {want.stride()}")
+                errs[layout] = float((got - want).abs().max())
+                if not errs[layout] <= 2e-5:
+                    raise RuntimeError(f"K2 {layout} T={T} c={c} B={B}: max abs err "
+                                       f"{errs[layout]} > 2e-5")
             if B != 2:
                 continue
+            err = max(errs.values())
             q, k, v = (t.permute(0, 2, 1, 3) for t in
                        qkv.reshape(B, T, heads, 3 * c).split(c, dim=-1))
             sdpa = lambda q=q, k=k, v=v: torch.nn.functional.scaled_dot_product_attention(q, k, v)
-            ms = time_ms(lambda: ak.qkv_attention(qkv, heads), inner=200)
-            plain_ms = time_ms(lambda: ak.qkv_attention_ref(qkv, heads), inner=50)
-            lib_ms = time_ms(sdpa, inner=200)
-            k2_calls[f"qkv_attention_T{T}_c{c}"] = (
-                lambda qkv=qkv: ak.qkv_attention(qkv, heads), sdpa)
+            kern = lambda x=qkv_cf: ak.qkv_attention(x, heads)
+            ms, tok_ms, lib_ms = time_ms_turns(
+                [kern, lambda: ak.qkv_attention(qkv, heads), sdpa], inner=200)
+            plain_ms = time_ms(lambda: ak.qkv_attention_ref(qkv_cf, heads), inner=50)
+            k2_calls[f"qkv_attention_T{T}_c{c}"] = (kern, sdpa)
             flops = B * heads * (4.0 * T * T * c + 5.0 * T * T)
             b_ms, b_by = bound(4.0 * B * T * 4 * heads * c, flops, "f32")
             rows.append({
                 "name": f"qkv_attention_T{T}_c{c}", "route": "cuda", "source": K2_SRC,
                 "replaces": K2_TPU, "launches": 0, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "shape": f"B={B} T={T} H={heads} c={c}",
+                "shape": f"B={B} T={T} H={heads} c={c} channel-first",
+                "token_major_ms": tok_ms,
             })
-            log(f"[kernels] K2 T={T} c={c} B={B}: err {err:.3g} kernel {ms * 1e3:.2f} us "
-                f"plain {plain_ms * 1e3:.2f} us SDPA {lib_ms * 1e3:.2f} us "
-                f"bound {b_ms * 1e3:.3f} us ({b_by})")
+            log(f"[kernels] K2 T={T} c={c} B={B}: err token-major {errs['token-major']:.3g} "
+                f"channel-first {errs['channel-first']:.3g}; kernel {ms * 1e3:.2f} us "
+                f"(token-major {tok_ms * 1e3:.2f} us) plain {plain_ms * 1e3:.2f} us "
+                f"SDPA {lib_ms * 1e3:.2f} us bound {b_ms * 1e3:.3f} us ({b_by})")
     return rows, k2_calls
 
 
@@ -394,10 +418,12 @@ def _device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0)))
 
 
-def _profiled(label, fn):
+def _profiled(label, fn, steps=None):
     """Wall time of fn without the profiler, then its device kernels under
     torch.profiler: device busy share = summed kernel time / that wall time
-    (the profiler's own host overhead stays out of the wall time)."""
+    (the profiler's own host overhead stays out of the wall time). With
+    `steps`, also the device kernels launched per step (copies and memsets
+    apart)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -417,6 +443,10 @@ def _profiled(label, fn):
         return
     log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, kernels {busy_us / 1e3:.1f} ms, "
         f"device busy {100 * busy_us / wall_us:.1f}%")
+    if steps:
+        launched = sum(e.count for e in kernels if not e.key.startswith(("Memcpy", "Memset")))
+        log(f"[profile] {label}: device kernels launched per step {launched / steps:.2f} "
+            f"({launched} in {steps} steps)")
     for e in sorted(kernels, key=_device_us, reverse=True)[:6]:
         log(f"[profile]   {_device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
 
@@ -443,12 +473,44 @@ def phase_profile(dev):
         return x
 
     steps(5)  # warm up
-    _profiled("sample, 20 DDPM steps", lambda: steps(20))
+    _profiled("sample, 20 DDPM steps", lambda: steps(20), steps=20)
     dec, fx = load_fixture_decoder(dev)
     udf_fn = make_udf_fn(dec, None, torch.from_numpy(fx["latent"]), fx["max_dist"], device=dev)
     cfg = MeshExtractionConfig(resolution=256, surface_bias="auto")
     get_mesh_from_udf(udf_fn, cfg=cfg)  # warm up (band calibration, native library)
     _profiled("extract 256^3 sheet", lambda: get_mesh_from_udf(udf_fn, cfg=cfg))
+
+
+def phase_host(dev, calls: int = 10_000, rounds: int = 3):
+    """K2 wrapper's host cost: host clock over `calls` back-to-back calls at
+    T 32, c 28, B 2 that synchronise once at the end, in `rounds` turns of
+    token-major, SDPA on the same values (PyTorch's own call, for scale) and
+    channel-first."""
+    from surfd_tpu_torch.ops import attention_kernel as ak
+
+    B, T, H, c = 2, 32, 8, 28
+    qkv = torch.from_numpy(
+        np.random.default_rng(4).normal(size=(B, T, 3 * H * c)).astype(np.float32)
+    ).to(dev)
+    q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.reshape(B, T, H, 3 * c).split(c, dim=-1))
+    qkv_cf = qkv.transpose(1, 2).contiguous().transpose(1, 2)
+    calls_by = {
+        "K2 token-major": lambda: ak.qkv_attention(qkv, H),
+        "SDPA": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+        "K2 channel-first": lambda: ak.qkv_attention(qkv_cf, H),
+    }
+    for rnd in range(rounds):
+        for label, fn in calls_by.items():
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            us = (time.perf_counter() - t0) / calls * 1e6
+            log(f"[host] round {rnd} {label} T={T} c={c} B={B}: {us:.3f} us per call "
+                f"over {calls} calls")
 
 
 def phase_extract(dev):
@@ -558,6 +620,8 @@ def main() -> int:
     k2_device_times(rows, k2_calls)
     if "profile" in phases:
         phase_profile(dev)
+    if "host" in phases:
+        phase_host(dev)
     if "bars" in phases:
         phase_bars(dev)
     if "cli" in phases:

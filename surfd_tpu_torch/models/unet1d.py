@@ -57,8 +57,9 @@ class AttentionBlock1D(nn.Module):
         self.proj_out = nn.Conv1d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = self.qkv(self.norm(x)).transpose(1, 2).contiguous()  # (B, T, 3·H·c)
-        h = qkv_attention(qkv, self.num_heads).transpose(1, 2)
+        # K2 reads the convolution's (B, 3·H·c, T) output as a (B, T, 3·H·c)
+        # view and writes a (B, H·c, T) tensor for proj_out: no copy either side
+        h = qkv_attention(self.qkv(self.norm(x)).transpose(1, 2), self.num_heads).transpose(1, 2)
         return x + self.proj_out(h)
 
 

@@ -83,8 +83,11 @@ def build(verbose: bool = False) -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The kernels' library, built first if missing or stale."""
+    """The kernels' library, built first if missing or stale. Once loaded it
+    is returned without taking the lock: this sits on every launch's path."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             if _stale():
@@ -97,7 +100,8 @@ def load() -> ctypes.CDLL:
                 # pts, P, H, L, 13 weight pointers, b_out, max_dist, out, stream
                 fn.argtypes = [vp, i64, i32, i32] + [vp] * 13 + [f32, f32, vp, vp]
             lib.surfd_qkv_attention.restype = i32
-            lib.surfd_qkv_attention.argtypes = [vp, vp, i32, i32, i32, i32, f32, vp]
+            # qkv, out, B, T, H, C, scale, qkv's and out's (batch, token, channel) strides, stream
+            lib.surfd_qkv_attention.argtypes = [vp, vp, i32, i32, i32, i32, f32] + [i64] * 6 + [vp]
             _lib = lib
         return _lib
 

@@ -72,19 +72,51 @@ def test_k1_matches_plain(cuda, hidden, layers, precision, n_pts, record_propert
     assert all(v <= K1_BF16_BARS[k] for k, v in read.items()), read
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 2, 4])
-@pytest.mark.parametrize("T,c", [(32, 28), (16, 56), (8, 112), (4, 112), (64, 28)])
-def test_k2_matches_plain(cuda, T, c, B):
-    qkv = torch.from_numpy(
-        np.random.default_rng(2).normal(size=(B, T, 3 * HEADS * c)).astype(np.float32)
+# the MDM's (T, c) at latent 32 and 64, then the kernel's largest shape and
+# shapes off the 16-byte staging path (c or T not a multiple of 4, one token)
+K2_SHAPES = [(32, 28), (16, 56), (8, 112), (4, 112), (64, 28), (32, 56), (16, 112),
+             (64, 128), (5, 27), (1, 4)]
+
+
+def _k2_input(B, T, c, layout, cuda, seed=2):
+    """Seeded qkv on the card, token-major or as the (B, T, W) view of a
+    contiguous (B, W, T) tensor (what the attention block's conv writes)."""
+    x = torch.from_numpy(
+        np.random.default_rng(seed).normal(size=(B, T, 3 * HEADS * c)).astype(np.float32)
     ).to(cuda)
+    return x if layout == "token" else x.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["token", "channel"])
+@pytest.mark.parametrize("B", [1, 2, 4])
+@pytest.mark.parametrize("T,c", K2_SHAPES)
+def test_k2_matches_plain(cuda, T, c, B, layout):
+    qkv = _k2_input(B, T, c, layout, cuda)
     before = sum(ak.qkv_attention.launches.values())
     got = ak.qkv_attention(qkv, HEADS)
     want = ak.qkv_attention_ref(qkv, HEADS)
     torch.cuda.synchronize()
     assert sum(ak.qkv_attention.launches.values()) == before + 1
+    assert got.stride() == want.stride()  # the input's layout
     assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_k2_runs_on_the_current_stream(cuda):
+    """Launched inside torch.cuda.stream(s) while the default stream is held
+    busy, K2 runs on s: its result is right once s alone has finished. Had it
+    gone to the default stream, s would read an output not yet written."""
+    qkv = _k2_input(2, 32, 28, "channel", cuda, seed=7)
+    want = ak.qkv_attention_ref(qkv, HEADS)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    torch.cuda._sleep(50_000_000)  # the default stream spins for tens of ms
+    with torch.cuda.stream(s):
+        err = (ak.qkv_attention(qkv, HEADS) - want).abs().max()
+        s.synchronize()
+        assert float(err) <= 2e-5  # read on s, not ordered after the default stream
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -152,3 +184,19 @@ def test_wrappers_reject_bad_input(cuda):
         dk.folded_udf(wide, torch.zeros(8, 3, device=cuda), "bf16")
     with pytest.raises(ValueError):
         ak.qkv_attention(torch.zeros(1, 4, 3 * HEADS * 4, device=cuda).half(), HEADS)
+    with pytest.raises(ValueError):  # past the kernel's T and c limits
+        ak.qkv_attention(torch.zeros(1, 65, 3 * HEADS * 4, device=cuda), HEADS)
+    with pytest.raises(ValueError):
+        ak.qkv_attention(torch.zeros(1, 4, 3 * HEADS * 129, device=cuda), HEADS)
+
+
+@pytest.mark.cuda
+def test_k2_rejects_other_strides(cuda):
+    """Only the two layouts; anything else raises and launches nothing."""
+    x = torch.zeros(2, 8, 3 * HEADS * 4, device=cuda)
+    before = sum(ak.qkv_attention.launches.values())
+    for bad in (x[:, ::2], x.transpose(0, 1),
+                x.transpose(1, 2).contiguous().transpose(1, 2)[:, :, :3 * HEADS * 2]):
+        with pytest.raises(ValueError, match="strides"):
+            ak.qkv_attention(bad, HEADS)
+    assert sum(ak.qkv_attention.launches.values()) == before
