@@ -10,9 +10,10 @@ CbnDecoder folds into a plain MLP:
 
 Kernel K1 evaluates it; it replaces the TPU kernel `_decoder_kernel` /
 `pallas_folded_udf` (surfd_tpu/ops/decoder_kernel.py, retired in commit
-a9ab519). Precision "f32" runs `ops/csrc/folded_mlp.cu` (FP32 pipes) and
-matches the live JAX function `folded_udf`; precision "bf16" runs
-`ops/csrc/folded_mlp_bf16.cu` (wgmma tensor cores: bf16 matmul inputs, f32
+a9ab519). Both precisions run on wgmma tensor cores. Precision "f32" runs
+`ops/csrc/folded_mlp.cu` (3xTF32: each operand split into two tf32 halves,
+three products, f32 sums) and matches the live JAX function `folded_udf`;
+precision "bf16" runs `ops/csrc/folded_mlp_bf16.cu` (bf16 matmul inputs, f32
 sums, f32 affine/ReLU chain — the retired TPU kernel's own math) and matches
 `folded_udf_mixed`. The plain versions below are those two functions. The
 source notes in the .cu files say what bounds each on an H100 and how the
@@ -21,7 +22,7 @@ design answers.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 
 import torch
 
@@ -32,7 +33,10 @@ NUM_FREQS = 10
 
 @dataclass
 class FoldedDecoder:
-    """Inference-folded decoder weights for one latent, all on one device."""
+    """Inference-folded decoder weights for one latent, all on one device.
+
+    K1's packed operands (`packed`) are cached on the fold and made again
+    when a field is replaced or a tensor is changed in place."""
 
     w_in: torch.Tensor  # (63, H)
     b_in: torch.Tensor  # (H,)
@@ -50,7 +54,9 @@ class FoldedDecoder:
     b_out: torch.Tensor  # (1,)
     max_dist: float
     b_out_value: float = 0.0  # b_out on the host: no device read per launch
-    _bf16: PackedBf16 | None = field(default=None, repr=False)
+    # K1's operands per precision, each beside the `_sources` they were made
+    # from; a copy (dataclasses.replace, padded) starts with none
+    _packed: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def hidden(self) -> int:
@@ -81,26 +87,23 @@ class FoldedDecoder:
             b_out=self.b_out, max_dist=self.max_dist, b_out_value=self.b_out_value,
         )
 
-    def packed_bf16(self) -> PackedBf16:
-        """K1 bf16's operands, made once: the width padded to the next
-        `BF16_WIDTHS` entry, matmul weights packed by `pack_kmajor` (w_in
-        with a zero 64th row), w_out in bf16."""
-        if self._bf16 is None:
-            width = next(w for w in BF16_WIDTHS if w >= self.hidden)
-            f = self.padded(width)
-            npass = pass_width(width)
-            w_in = torch.cat([f.w_in, f.w_in.new_zeros(1, width)])
-            self._bf16 = PackedBf16(
-                folded=f,
-                w_in=pack_kmajor(w_in, npass),
-                w1=torch.cat([pack_kmajor(w, npass) for w in f.w1]),
-                w2=torch.cat([pack_kmajor(w, npass) for w in f.w2]),
-                w_out=f.w_out[:, 0].to(torch.bfloat16).contiguous(),
-            )
-        return self._bf16
+    def _sources(self) -> tuple:
+        """What K1's operands are made from: every field, and each tensor's
+        in-place version (`Tensor._version`, shared with its views)."""
+        values = tuple(getattr(self, f.name) for f in fields(self) if f.name != "_packed")
+        return values, tuple(v._version for v in values if isinstance(v, torch.Tensor))
+
+    def packed(self, precision: str) -> PackedK1:
+        """K1's operands for `precision` (`pack_k1`), cached until a field is
+        replaced or a tensor changed in place."""
+        values, versions = self._sources()
+        hit = self._packed.get(precision)
+        if hit is None or hit[1] != versions or any(a is not b for a, b in zip(hit[0], values)):
+            hit = self._packed[precision] = (values, versions, pack_k1(self, precision))
+        return hit[2]
 
 
-BF16_WIDTHS = (64, 128, 256, 512)  # hidden widths K1 bf16 instantiates
+K1_WIDTHS = (64, 128, 256, 512)  # hidden widths both K1 kernels instantiate
 SLAB_K = 64  # K rows of one weight slab that K1 bf16 streams
 
 
@@ -111,8 +114,8 @@ def pass_width(width: int) -> int:
 
 def pack_kmajor(w: torch.Tensor, npass: int) -> torch.Tensor:
     """Pack a (K, N) matmul weight (x @ w) into wgmma's no-swizzle K-major
-    core-matrix layout, as a flat bf16 tensor. K is a multiple of 64, N of
-    `npass`.
+    core-matrix layout, as a flat bf16 tensor (K1 bf16). K is a multiple of
+    64, N of `npass`.
 
     With k = 64·s + 8·kg + kk and n = npass·p + 8·ng + nn (kk, nn < 8), the
     element w[k, n] lands at
@@ -133,16 +136,71 @@ def pack_kmajor(w: torch.Tensor, npass: int) -> torch.Tensor:
     return t.permute(3, 0, 4, 1, 5, 2).contiguous().reshape(-1)  # [p, s, ng, kg, nn, kk]
 
 
+AFRAG_K = 16  # K rows of one weight slab that K1 f32 streams: two k8 steps
+
+
+def pack_afrag(w: torch.Tensor) -> torch.Tensor:
+    """Pack a (K, N) matmul weight (x @ w) for K1 f32, which multiplies
+    wᵀ (N × K, the hidden units as wgmma's M) as the register A operand of
+    m64nNk8 tf32 wgmmas. A flat f32 tensor; K is a multiple of 16, N of 64.
+
+    In an m64nNk8 tf32 A fragment, thread tt = 32·w + 4·g + t of the
+    warpgroup holds, in its registers v = 2·vk + vm, the element of row
+    16·w + 8·vm + g and column 4·vk + t. So with k = 16·s + 8·q + 4·vk + t
+    and n = 64·j + 16·w + 8·vm + g, the element w[k, n] lands at
+
+        offset = (((s·2 + q)·(N/64) + j)·128 + 32·w + 4·g + t)·4 + 2·vk + vm
+
+    Slab s (16 K rows, all N columns) is one contiguous block of 64·N bytes,
+    streamed in order; inside it, the fragment of (k8 step q, M tile j) is
+    2 KB, and each thread reads its four values with one 16-byte load.
+    """
+    K, N = w.shape
+    if K % AFRAG_K or N % 64:
+        raise ValueError(f"cannot pack a ({K}, {N}) weight into tf32 A fragments")
+    t = w.to(torch.float32).reshape(K // 16, 2, 2, 4, N // 64, 4, 2, 8)  # s q vk t j w vm g
+    return t.permute(0, 1, 4, 5, 7, 3, 2, 6).contiguous().reshape(-1)  # [s, q, j, w, g, t, vk, vm]
+
+
+def round_tf32(a: torch.Tensor) -> torch.Tensor:
+    """f32 → the nearest tf32 value (ties away from zero, 10 mantissa bits),
+    as K1 f32 rounds each operand (`cvt.rna.tf32.f32`): add half of the 13
+    dropped bits' unit to the bit pattern, then clear them."""
+    bits = a.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_k1(folded: FoldedDecoder, precision: str) -> PackedK1:
+    """K1's operands for `precision`: the width padded to the next
+    `K1_WIDTHS` entry, w_in with a zero 64th row, the matmul weights packed by
+    `pack_afrag` (f32) or `pack_kmajor` (bf16), w_out as (H,)."""
+    width = next(w for w in K1_WIDTHS if w >= folded.hidden)
+    f = folded.padded(width)
+    if precision == "f32":
+        pack, w_out = pack_afrag, f.w_out[:, 0].contiguous()
+    else:
+        npass = pass_width(width)
+        pack = lambda w: pack_kmajor(w, npass)
+        w_out = f.w_out[:, 0].to(torch.bfloat16).contiguous()
+    return PackedK1(
+        folded=f,
+        w_in=pack(torch.cat([f.w_in, f.w_in.new_zeros(1, width)])),
+        w1=torch.cat([pack(w) for w in f.w1]),
+        w2=torch.cat([pack(w) for w in f.w2]),
+        w_out=w_out,
+    )
+
+
 @dataclass
-class PackedBf16:
-    """K1 bf16's operands: the padded fold (its f32 vectors go to the kernel
-    as they are) and the packed bf16 matmul weights."""
+class PackedK1:
+    """K1's operands: the padded fold (its f32 vectors go to the kernel as
+    they are) and the packed matmul weights."""
 
     folded: FoldedDecoder
-    w_in: torch.Tensor  # pack_kmajor of (64, H)
+    w_in: torch.Tensor  # packed (64, H)
     w1: torch.Tensor  # L packed (H, H), concatenated
     w2: torch.Tensor
-    w_out: torch.Tensor  # (H,) bf16
+    w_out: torch.Tensor  # (H,), f32 or bf16
 
 
 @torch.no_grad()
@@ -261,26 +319,28 @@ def folded_udf(folded: FoldedDecoder, pts: torch.Tensor, precision: str = "f32")
         raise ValueError(f"unsupported device {pts.device}")
     if pts.dtype != torch.float32 or not pts.is_contiguous():
         raise ValueError("pts must be a contiguous float32 tensor")
-    H, L = folded.hidden, folded.layers
+    H = folded.hidden
     if H % 32 or not 64 <= H <= 512:
         raise ValueError(f"hidden width {H} unsupported (multiple of 32 in [64, 512])")
     if folded.w_in.device != pts.device:
         raise ValueError(f"weights on {folded.w_in.device}, points on {pts.device}")
+    return launch_k1(folded.packed(precision), pts, precision)
+
+
+def launch_k1(pk: PackedK1, pts: torch.Tensor, precision: str) -> torch.Tensor:
+    """Launch K1 on operands `pack_k1` made, on the current stream, for the
+    contiguous f32 CUDA points `folded_udf` has checked."""
+    if pts.device.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA tensors, got {pts.device}")
     out = torch.empty(pts.shape[0], device=pts.device, dtype=torch.float32)
-    if precision == "f32":
-        f, mats = folded, [folded.w_in, folded.w1, folded.w2, folded.w_out]
-        fn = _build.load().surfd_folded_mlp_f32
-    else:
-        pk = folded.packed_bf16()
-        f, mats = pk.folded, [pk.w_in, pk.w1, pk.w2, pk.w_out]
-        fn = _build.load().surfd_folded_mlp_bf16
-    w_in, w1, w2, w_out = (m.contiguous() for m in mats)
+    f = pk.folded
+    fn = getattr(_build.load(), f"surfd_folded_mlp_{precision}")
     rc = fn(
-        pts.data_ptr(), pts.shape[0], f.hidden, L,
-        w_in.data_ptr(), f.b_in.data_ptr(),
-        f.a1.data_ptr(), f.c1.data_ptr(), w1.data_ptr(), f.b1.data_ptr(),
-        f.a2.data_ptr(), f.c2.data_ptr(), w2.data_ptr(), f.b2.data_ptr(),
-        f.a_out.data_ptr(), f.c_out.data_ptr(), w_out.data_ptr(),
+        pts.data_ptr(), pts.shape[0], f.hidden, f.layers,
+        pk.w_in.data_ptr(), f.b_in.data_ptr(),
+        f.a1.data_ptr(), f.c1.data_ptr(), pk.w1.data_ptr(), f.b1.data_ptr(),
+        f.a2.data_ptr(), f.c2.data_ptr(), pk.w2.data_ptr(), f.b2.data_ptr(),
+        f.a_out.data_ptr(), f.c_out.data_ptr(), pk.w_out.data_ptr(),
         f.b_out_value, f.max_dist, out.data_ptr(),
         torch.cuda.current_stream(pts.device).cuda_stream,
     )

@@ -56,8 +56,8 @@ def _read_as_kernel(packed, K, N, npass):
 @pytest.mark.parametrize("hidden,width", [(64, 64), (96, 128), (128, 128), (512, 512)])
 def test_pack_round_trips(hidden, width):
     f = _folded(hidden)
-    pk = f.packed_bf16()
-    assert pk.folded.hidden == width and f.packed_bf16() is pk  # made once
+    pk = f.packed("bf16")
+    assert pk.folded.hidden == width and f.packed("bf16") is pk  # made once
     npass = dk.pass_width(width)
     w_in = _read_as_kernel(pk.w_in, 64, width, npass)
     assert torch.equal(w_in[:63, :hidden], f.w_in.to(torch.bfloat16))

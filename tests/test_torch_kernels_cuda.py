@@ -6,6 +6,9 @@ only torch, numpy and the port, so it runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -13,9 +16,15 @@ import torch
 from surfd_tpu_torch.models import MDM, CbnDecoder
 from surfd_tpu_torch.ops import attention_kernel as ak
 from surfd_tpu_torch.ops import decoder_kernel as dk
+from surfd_tpu_torch.utils.convert import load_sheet_fixture, strip_prefix
 
 MAX_DIST = 0.1
 HEADS = 8
+FIXTURE = str(Path(__file__).resolve().parent.parent / "surfd_tpu/assets/bench_sheet_decoder.npz")
+# K1 f32's bars: max and mean abs against folded_udf_ref, as in
+# chip_smoke.py. PERF.md gives the readings they were set from, sound and
+# with planted faults.
+K1_F32_BARS = {"max": 2e-6, "mean": 3e-8}
 
 
 @pytest.fixture
@@ -61,7 +70,7 @@ def test_k1_matches_plain(cuda, hidden, layers, precision, n_pts, record_propert
         want = dk.folded_udf_ref(folded, p)
         torch.cuda.synchronize()
         assert dk.folded_udf.launches[precision] == before + 1
-        assert float((got - want).abs().max()) <= 1e-5
+        _assert_f32_bars(got, want, record_property)
         return
     tc = (got - dk.folded_udf_mixed_tc(folded, p)).abs()
     read = {"tc_max": float(tc.max()), "tc_mean": float(tc.mean()),
@@ -70,6 +79,74 @@ def test_k1_matches_plain(cuda, hidden, layers, precision, n_pts, record_propert
         record_property(k, v)
     assert dk.folded_udf.launches[precision] == before + 1
     assert all(v <= K1_BF16_BARS[k] for k, v in read.items()), read
+
+
+def _assert_f32_bars(got, want, record_property):
+    err = (got - want).abs()
+    read = {"max": float(err.max()), "mean": float(err.mean())}
+    for k, v in read.items():
+        record_property(k, v)
+    assert all(v <= K1_F32_BARS[k] for k, v in read.items()), read
+
+
+def _fixture_fold(cuda):
+    fx = load_sheet_fixture(FIXTURE)
+    dec = CbnDecoder(len(fx["latent"]), fx["hidden_dim"], fx["num_hidden_layers"])
+    dec.load_state_dict(strip_prefix(fx["state_dict"], "decoder."), strict=True)
+    return dk.fold_decoder(dec.to(cuda), torch.from_numpy(fx["latent"]).to(cuda), fx["max_dist"])
+
+
+def _points(n, seed, cuda):
+    return torch.from_numpy(
+        np.random.default_rng(seed).uniform(-1, 1, (n, 3)).astype(np.float32)).to(cuda)
+
+
+@pytest.mark.cuda
+def test_k1_f32_matches_plain_on_fixture_at_2p20(cuda, record_property):
+    """The trained sheet decoder (H 512, L 5) at 2^20 points, the main path's shape."""
+    folded = _fixture_fold(cuda)
+    pts = _points(1 << 20, 0, cuda)
+    _assert_f32_bars(dk.folded_udf(folded, pts, "f32"), dk.folded_udf_ref(folded, pts),
+                     record_property)
+
+
+@pytest.mark.cuda
+def test_k1_f32_planted_dropped_w_lo_fails(cuda, record_property):
+    """A random decoder's weights are not tf32 values (the fixture's, stored
+    in f16, are), so one layer's W1 rounded to tf32 acts as a kernel that
+    dropped that layer's W_lo products: it must leave both bars."""
+    dec = _decoder(512, 5).to(cuda)
+    rng = np.random.default_rng(1)
+    p = torch.from_numpy(rng.uniform(-1, 1, (4096 + 17, 3)).astype(np.float32)).to(cuda)
+    folded = dk.fold_decoder(dec, torch.from_numpy(rng.normal(size=(16,)).astype(np.float32)).to(cuda),
+                             MAX_DIST)
+    w1 = folded.w1.clone()
+    w1[2] = dk.round_tf32(w1[2])
+    fault = dataclasses.replace(folded, w1=w1)
+    want = dk.folded_udf_ref(folded, p)
+    err = (dk.folded_udf(fault, p, "f32") - want).abs()
+    read = {"max": float(err.max()), "mean": float(err.mean())}
+    for k, v in read.items():
+        record_property(k, v)
+    assert all(v > K1_F32_BARS[k] for k, v in read.items()), read
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plant", ["fragment registers 1 and 2 swapped", "M tiles 0 and 1 swapped"])
+def test_k1_f32_planted_wrong_fragment_order_fails(cuda, plant):
+    """W1 packed in another A-fragment order than the kernel reads: the
+    result must leave the bar, else the check could not see a wrong layout."""
+    folded = _fixture_fold(cuda)
+    pts = _points(4096, 1, cuda)
+    want = dk.folded_udf_ref(folded, pts)
+    pk = dk.pack_k1(folded, "f32")
+    if plant.startswith("fragment"):
+        w1 = pk.w1.view(-1, 4)[:, [0, 2, 1, 3]]
+    else:  # (slab, k8 step, M tile, 512 values) with M tiles 0 and 1 traded
+        w1 = pk.w1.view(-1, 2, 8, 512)[:, :, [1, 0, 2, 3, 4, 5, 6, 7]]
+    bad = dataclasses.replace(pk, w1=w1.contiguous().view(-1))
+    assert float((dk.launch_k1(pk, pts, "f32") - want).abs().max()) <= K1_F32_BARS["max"]
+    assert float((dk.launch_k1(bad, pts, "f32") - want).abs().max()) > 10 * K1_F32_BARS["max"]
 
 
 # the MDM's (T, c) at latent 32 and 64, then the kernel's largest shape and
