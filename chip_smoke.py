@@ -22,13 +22,29 @@ Phases, each fatal on failure:
      surface_bias="auto" through get_mesh_from_udf — the JAX package's bars
      (tests/test_e2e_fixture.py), the face count within 1 % of the JAX
      package's, and K1 on the path, no plain version;
-  5. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
+  5. generation at the JAX package's breadth: category CFG sampling with
+     the full-width category MDM, guidance 2.5, B = 2 (K2 at B 4), ddim50 —
+     DDIM at eta 0 twice (bit-equal), against the port's own CPU run on the
+     same weights and noise (max abs <= 1e-3), K2 exactly 800 launches;
+     PLMS order 2, K2 exactly 816; the watertight sheet at 256^3 (faces
+     within 1 % of the JAX package's, one component, max |v| = 1, K1 f32
+     launched); the batch generator, two 256^3 extractions on two latents
+     at depth 1 and depth 2, bit-equal;
+  6. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
      turns with SDPA's;
-  6. the unconditional-generation CLI writes an OBJ.
+  7. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
+     (DDIM, guidance 2.5, two extractions at a time) and generate_uncond
+     (PLMS, watertight).
+
+Phases 3-5 are the main path: each runs with the launch counts set to 0
+just before it and read just after, and no plain version may run in them.
 
 Not in the default run: `--phases build,profile` (where the time goes, and
-device kernels per DDPM step) and `--phases build,bars` (the readings
-behind both K1 kernels' bars, sound and with planted faults).
+device kernels per DDPM step), `--phases build,bars` (the readings behind
+both K1 kernels' bars, sound and with planted faults) and `--phases
+build,parity` (the sheet at 128^3 on the card against the port's own CPU
+run: faces within 1 %, mean NN distance <= 0.1 voxel, the same active
+blocks; and the watertight shell within 1 % of the JAX package's faces).
 
 Prints progress lines, then a `{"kernels": [...]}` line, the nvidia-smi line
 and, last, `{"ok": true, "device": {...}}`. Precision: TF32 is off for
@@ -52,8 +68,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "surfd_tpu", "assets", "bench_sheet_decoder.npz")
-PHASES = ("build", "kernels", "sample", "extract", "host", "cli")  # the default run
-EXTRA_PHASES = ("profile", "bars")
+PHASES = ("build", "kernels", "sample", "extract", "generate", "host", "cli")  # the default run
+MAIN_PATH = ("sample", "extract", "generate")  # counted: launches, no plain version
+EXTRA_PHASES = ("profile", "bars", "parity")
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type.
 HBM_BPS = 3.35e12
@@ -81,6 +98,10 @@ K2_SHAPES = ((32, 28), (16, 56), (8, 112), (4, 112))  # (T, c) at latent 32, 224
 # (surfd_tpu on the CPU, max_batch 2^16; ROADMAP queue 1 item 1). The card
 # has no JAX, so the number is kept here.
 JAX_FACES_256 = 1_915_484
+# The JAX package's watertight face counts (get_watertight_mesh_from_udf, the
+# iso-0.01 shell) for the sheet fixture, auto bias, on a CPU; read when the
+# port's watertight path was added. It has 456 boundary vertices at 256^3.
+JAX_WATERTIGHT_FACES = {128: 297_708, 256: 1_282_846}
 
 
 def log(msg: str) -> None:
@@ -213,7 +234,7 @@ def device_us_per_call(fn, name: str, calls: int = 200) -> tuple[float, int]:
 
 
 def phase_kernels(dev, hgmma=None):
-    """K1 (f32, bf16) and K2 (four shapes, B = 1 and 2) against plain versions."""
+    """K1 (f32, bf16) and K2 (four shapes, B = 1, 2 and 4) against plain versions."""
     from surfd_tpu_torch.ops import attention_kernel as ak
     from surfd_tpu_torch.ops import decoder_kernel as dk
 
@@ -277,7 +298,7 @@ def phase_kernels(dev, hgmma=None):
     rng = np.random.default_rng(1)
     k2_calls = {}
     for T, c in K2_SHAPES:
-        for B in (1, 2):
+        for B in (1, 2, 4):  # B 4: the CFG pass of B 2
             qkv = torch.from_numpy(
                 rng.normal(size=(B, T, 3 * heads * c)).astype(np.float32)
             ).to(dev)
@@ -434,6 +455,17 @@ def reset_counts():
     dk.folded_udf_ref.calls = 0
     dk.folded_udf_mixed_ref.calls = 0
     ak.qkv_attention_ref.calls = 0
+
+
+def launch_counts() -> dict:
+    """Kernel launches since reset_counts(), by the kernels line's row names."""
+    from surfd_tpu_torch.ops import attention_kernel as ak
+    from surfd_tpu_torch.ops import decoder_kernel as dk
+
+    counts = {f"folded_mlp_{p}": n for p, n in dk.folded_udf.launches.items()}
+    counts.update({f"qkv_attention_T{T}_c{c}": n
+                   for (T, c), n in ak.qkv_attention.launches.items()})
+    return counts
 
 
 def plain_calls() -> int:
@@ -616,25 +648,220 @@ def phase_extract(dev):
     return {"extract_s": dt, "chamfer": cd, "faces": len(mesh.faces)}
 
 
-def phase_cli():
-    with tempfile.TemporaryDirectory() as out:
-        cmd = [
-            sys.executable, "-m", "surfd_tpu_torch.cli.generate_uncond", "--random-init",
-            "--num_samples", "1", "--resolution", "128", "--timestep_respacing", "50",
-            "--output_dir", out,
-        ]
+CFG_STEPS = "ddim50"  # category CFG sampling: cosine 1000 respaced to 50 DDIM steps
+CFG_ACTIONS = (1, 4)  # one class per sample, B = 2; guidance makes the pass B 4
+
+
+def category_mdm():
+    """The full-width category MDM (9 classes) with random weights from seed
+    0, on the CPU."""
+    from surfd_tpu_torch.models import MDM
+
+    mdm = MDM(cond_mode="category", num_actions=9)
+    mdm.Unet.random_init_(torch.Generator().manual_seed(0))
+    return mdm.eval()
+
+
+def cfg_sample(mdm, sampler: str, dev):
+    """(B, 32) latents of the CFG denoiser (guidance 2.5) on `dev`, over the
+    ddim50 schedule, from injected noise (numpy seed 20); DDIM at eta 0 or
+    PLMS of order 2. Returns the latents and the wall time."""
+    from surfd_tpu_torch.diffusion import named_beta_schedule, space_timesteps, spaced_schedule
+    from surfd_tpu_torch.models import make_cfg_model_fn
+    from surfd_tpu_torch.pipelines import sample_latents
+
+    sched = spaced_schedule(named_beta_schedule("cosine", 1000), space_timesteps(1000, CFG_STEPS))
+    B, L = len(CFG_ACTIONS), 32
+    rng = np.random.default_rng(20)
+    noise = torch.from_numpy(rng.normal(size=(B, L, 1)).astype(np.float32))
+    steps = torch.from_numpy(
+        rng.normal(size=(sched.num_timesteps, B, L, 1)).astype(np.float32))
+    action = torch.tensor(CFG_ACTIONS, dtype=torch.int64, device=dev)
+    model_fn = make_cfg_model_fn(mdm, 2.5, action=action)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = sample_latents(sched, model_fn, B, L, sampler=sampler, device=dev,
+                         noise=noise.to(dev),
+                         step_noise=None if sampler == "plms" else steps.to(dev))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return lat, time.perf_counter() - t0
+
+
+def boundary_vertices(mesh) -> int:
+    """Vertices on an edge that only one face has."""
+    f = mesh.faces
+    e = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+    keys, counts = np.unique(e[:, 0] * len(mesh.vertices) + e[:, 1], return_counts=True)
+    once = keys[counts == 1]
+    return len(np.unique(np.concatenate([once // len(mesh.vertices), once % len(mesh.vertices)])))
+
+
+def phase_generate(dev, cfg_ref):
+    """Generation at the JAX package's breadth (phase 5): category CFG DDIM
+    and PLMS at full width, the watertight sheet at 256^3 and the batch
+    generator at depth 1 and 2. `cfg_ref`: the CPU run's DDIM latents."""
+    from surfd_tpu_torch.geometry.mesh_ops import face_components
+    from surfd_tpu_torch.ops import attention_kernel as ak
+    from surfd_tpu_torch.ops import decoder_kernel as dk
+    from surfd_tpu_torch.pipelines import (
+        MeshExtractionConfig,
+        generate_meshes_pipelined,
+        get_watertight_mesh_from_udf,
+        make_udf_fn,
+    )
+
+    def counted(sampler, want):
+        """One CFG run on the card and its K2 launches, which must be `want`."""
+        n0 = sum(ak.qkv_attention.launches.values())
+        lat, dt = cfg_sample(mdm, sampler, dev)
+        n = sum(ak.qkv_attention.launches.values()) - n0
+        if n != want:
+            raise RuntimeError(f"K2 launched {n} times in one {sampler} run, want {want}")
+        return lat, dt
+
+    mdm = category_mdm().to(dev)
+    (a, ta), (b, tb) = counted("ddim", 16 * 50), counted("ddim", 16 * 50)
+    if not torch.equal(a, b):
+        raise RuntimeError(f"two DDIM runs differ: max {float((a - b).abs().max())}")
+    err = float((a.cpu() - cfg_ref).abs().max())
+    if not err <= 1e-3:
+        raise RuntimeError(f"DDIM card vs CPU: max abs {err} > 1e-3")
+    log(f"[generate] category CFG 2.5, B=2 (K2 at B 4), DDIM eta 0 over {CFG_STEPS}: "
+        f"{ta:.2f}s / {tb:.2f}s, bit-equal, card vs CPU max abs {err!r}, K2 launches "
+        f"800 each, latent std {float(a.std()):.3f}")
+    # order 2: a second model call on the first step
+    lat, tp = counted("plms", 16 * 51)
+    if tuple(lat.shape) != (2, 32) or not bool(torch.isfinite(lat).all()):
+        raise RuntimeError(f"PLMS latents bad: shape {tuple(lat.shape)}")
+    log(f"[generate] PLMS order 2 over the same 50 steps: {tp:.2f}s, K2 launches 816, "
+        f"latent std {float(lat.std()):.3f}")
+    out = {"ddim_s": [ta, tb], "plms_s": tp, "ddim_card_vs_cpu": err}
+
+    dec, fx = load_fixture_decoder(dev)
+    cfg = MeshExtractionConfig(resolution=256, surface_bias="auto")
+    f32_0 = dk.folded_udf.launches["f32"]
+    udf_fn = make_udf_fn(dec, None, torch.from_numpy(fx["latent"]), fx["max_dist"], device=dev)
+    t0 = time.perf_counter()
+    mesh, stats = get_watertight_mesh_from_udf(udf_fn, cfg, return_stats=True)
+    dt = time.perf_counter() - t0
+    want = JAX_WATERTIGHT_FACES[256]
+    gap = abs(len(mesh.faces) - want) / want
+    comps = int(face_components(mesh.faces, len(mesh.vertices)).max()) + 1
+    vmax = float(np.abs(mesh.vertices).max())
+    if not gap <= 0.01:
+        raise RuntimeError(f"watertight: {len(mesh.faces)} faces, {100 * gap:.3f} % off "
+                           f"the JAX package's {want}")
+    if comps != 1 or vmax != 1.0:
+        raise RuntimeError(f"watertight: {comps} components, max |v| {vmax}")
+    if dk.folded_udf.launches["f32"] == f32_0:
+        raise RuntimeError("K1 (f32) never launched in the watertight fill")
+    log(f"[generate] watertight 256^3 sheet: {len(mesh.vertices)} verts / {len(mesh.faces)} "
+        f"faces ({100 * gap:.4f} % off JAX's {want}), {comps} component, max |v| {vmax}, "
+        f"boundary vertices {boundary_vertices(mesh)} (JAX 456), {dt:.2f}s, "
+        f"times {json.dumps(stats['times'])}")
+    out["watertight_faces"] = len(mesh.faces)
+
+    perturbed = fx["latent"] + 0.02 * np.random.default_rng(1).normal(
+        size=fx["latent"].shape).astype(np.float32)
+    lats = [torch.from_numpy(fx["latent"]), torch.from_numpy(perturbed)]
+    meshes, walls = {}, {}
+    for depth in (1, 2):
+        fns = (make_udf_fn(dec, None, lat, fx["max_dist"], device=dev) for lat in lats)
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        dt = time.perf_counter() - t0
-        if r.returncode != 0:
-            raise RuntimeError(f"CLI failed ({r.returncode}):\n{r.stdout}\n{r.stderr[-4000:]}")
-        path = os.path.join(out, "uncond_0.obj")
-        if not os.path.exists(path):
-            raise RuntimeError(f"CLI wrote no OBJ:\n{r.stderr[-4000:]}")
-        log(f"[cli] generate_uncond --resolution 128 --timestep_respacing 50: {dt:.1f}s, "
-            f"{os.path.getsize(path)} bytes → uncond_0.obj")
-        for line in r.stderr.strip().splitlines()[-3:]:
-            log("[cli]   " + line)
+        meshes[depth] = list(generate_meshes_pipelined(fns, cfg, depth=depth))
+        walls[depth] = time.perf_counter() - t0
+    for k, (m1, m2) in enumerate(zip(meshes[1], meshes[2])):
+        if not (np.array_equal(m1.vertices, m2.vertices) and np.array_equal(m1.faces, m2.faces)):
+            raise RuntimeError(f"batch: mesh {k} at depth 2 differs from depth 1")
+    m0, m1 = meshes[1]
+    if m0.vertices.shape == m1.vertices.shape and np.array_equal(m0.vertices, m1.vertices):
+        raise RuntimeError("batch: the two latents gave the same mesh")
+    log(f"[generate] batch, two 256^3 extractions ({len(meshes[1][0].faces)} and "
+        f"{len(meshes[1][1].faces)} faces): depth 1 {walls[1]:.2f}s, depth 2 {walls[2]:.2f}s, "
+        f"bit-equal")
+    out["batch_s"] = walls
+    return out
+
+
+def phase_parity(dev):
+    """The sheet fixture at 128^3 (not part of the default run): the card's
+    mesh against the port's own CPU mesh (faces within 1 %, symmetric mean
+    NN distance <= 0.1 voxel, the same active blocks), and the card's
+    watertight shell within 1 % of the JAX package's faces."""
+    import copy
+
+    from scipy.spatial import cKDTree
+
+    from surfd_tpu_torch.pipelines import (
+        MeshExtractionConfig,
+        get_mesh_from_udf,
+        get_watertight_mesh_from_udf,
+        make_udf_fn,
+    )
+
+    R = 128
+    dec, fx = load_fixture_decoder(dev)
+    cfg = MeshExtractionConfig(resolution=R, surface_bias="auto", max_batch=2**16)
+    lat = torch.from_numpy(fx["latent"])
+    runs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = dec if where == "card" else copy.deepcopy(dec).cpu()
+        t0 = time.perf_counter()
+        udf_fn = make_udf_fn(model, None, lat, fx["max_dist"], device=d, chunk=2**16)
+        runs[where] = (*get_mesh_from_udf(udf_fn, cfg, return_stats=True),
+                       time.perf_counter() - t0)
+    (cm, cs, ct), (hm, hs, ht) = runs["card"], runs["cpu"]
+    gap = abs(len(cm.faces) - len(hm.faces)) / len(hm.faces)
+    nn = 0.5 * float(cKDTree(hm.vertices).query(cm.vertices)[0].mean()
+                     + cKDTree(cm.vertices).query(hm.vertices)[0].mean())
+    voxel = 2.0 / (R - 1)
+    same_ab = np.array_equal(cs["ab"], hs["ab"])
+    log(f"[parity] 128^3 sheet: card {len(cm.faces)} faces ({ct:.2f}s), CPU {len(hm.faces)} "
+        f"faces ({ht:.2f}s, {torch.get_num_threads()} threads): {100 * gap:.4f} % apart, mean NN "
+        f"{nn!r} ({nn / voxel:.3g} voxel), active blocks {len(cs['ab'])} / {len(hs['ab'])} "
+        f"{'equal' if same_ab else 'DIFFER'}, bias {cs['surface_bias']!r} / {hs['surface_bias']!r}")
+    if not (gap <= 0.01 and nn <= 0.1 * voxel and same_ab):
+        raise RuntimeError("parity: the card's 128^3 mesh is off the CPU's bars")
+    udf_fn = make_udf_fn(dec, None, lat, fx["max_dist"], device=dev, chunk=2**16)
+    wm = get_watertight_mesh_from_udf(udf_fn, cfg)
+    want = JAX_WATERTIGHT_FACES[R]
+    wgap = abs(len(wm.faces) - want) / want
+    log(f"[parity] 128^3 watertight: {len(wm.faces)} faces, {100 * wgap:.4f} % off JAX's {want}")
+    if not wgap <= 0.01:
+        raise RuntimeError("parity: watertight faces off the JAX package's by more than 1 %")
+
+
+CLI_RUNS = (  # (module, arguments, the OBJs it must write)
+    ("generate_uncond", ["--num_samples", "1", "--timestep_respacing", "50"], ["uncond_0.obj"]),
+    ("generate_cat", ["--sampler", "ddim", "--timestep_respacing", "ddim50", "--guidance_param",
+                      "2.5", "--num_samples", "2", "--pipeline_depth", "2"],
+     ["cat0_0.obj", "cat0_1.obj"]),
+    ("generate_uncond", ["--num_samples", "1", "--sampler", "plms", "--timestep_respacing", "50",
+                         "--watertight"], ["uncond_0.obj"]),
+)
+
+
+def phase_cli():
+    for module, extra, objs in CLI_RUNS:
+        with tempfile.TemporaryDirectory() as out:
+            argv = ["--random-init", "--resolution", "128", "--output_dir", out] + extra
+            cmd = [sys.executable, "-m", f"surfd_tpu_torch.cli.{module}", *argv]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            dt = time.perf_counter() - t0
+            if r.returncode != 0:
+                raise RuntimeError(f"{module} failed ({r.returncode}):\n{r.stdout}\n"
+                                   f"{r.stderr[-4000:]}")
+            written = sorted(os.listdir(out))
+            if written != objs:
+                raise RuntimeError(f"{module} wrote {written}, want {objs}:\n{r.stderr[-4000:]}")
+            sizes = [os.path.getsize(os.path.join(out, f)) for f in objs]
+            log(f"[cli] {module} {' '.join(extra)}: {dt:.1f}s, "
+                + ", ".join(f"{f} {n} bytes" for f, n in zip(objs, sizes)))
+            for line in r.stderr.strip().splitlines()[-3:]:
+                log("[cli]   " + line)
 
 
 def main() -> int:
@@ -658,26 +885,29 @@ def main() -> int:
         hgmma = phase_build()
     if "kernels" in phases:
         rows, k2_calls = phase_kernels(dev, hgmma)
-    from surfd_tpu_torch.ops import attention_kernel as ak
-    from surfd_tpu_torch.ops import decoder_kernel as dk
-
-    reset_counts()  # the main path starts here: count only its launches
-    if "sample" in phases:
-        phase_sample(dev)
-    if "extract" in phases:
-        phase_extract(dev)
-    if plain_calls():
-        raise RuntimeError(f"a plain version ran on the main path ({plain_calls()} calls)")
+    if "generate" in phases:  # the CPU reference, outside the counted paths
+        cfg_ref, t_ref = cfg_sample(category_mdm(), "ddim", torch.device("cpu"))
+        log(f"[generate] CPU reference DDIM run ({torch.get_num_threads()} threads): {t_ref:.2f}s")
+    paths = {"sample": lambda: phase_sample(dev), "extract": lambda: phase_extract(dev),
+             "generate": lambda: phase_generate(dev, cfg_ref)}
+    by_path = {}
+    for name in MAIN_PATH:
+        if name not in phases:
+            continue
+        reset_counts()  # count only this path's launches
+        paths[name]()
+        if plain_calls():
+            raise RuntimeError(f"a plain version ran on the main path, in phase {name} "
+                               f"({plain_calls()} calls)")
+        by_path[name] = launch_counts()
     for row in rows:
-        if row["name"].startswith("folded_mlp_"):
-            row["launches"] = dk.folded_udf.launches[row["name"].rsplit("_", 1)[1]]
-        else:
-            T, c = (int(s[1:]) for s in row["name"].split("_")[2:])
-            row["launches"] = ak.qkv_attention.launches.get((T, c), 0)
-    if "sample" in phases and "extract" in phases:
+        row["launches_by_path"] = {p: c.get(row["name"], 0) for p, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+    if all(p in phases for p in MAIN_PATH):
         unused = [r["name"] for r in rows if r["launches"] == 0]
         if unused:
             raise RuntimeError(f"kernels not launched on the main path: {unused}")
+    log(f"[main path] launches by phase: {json.dumps(by_path)}")
     k2_device_times(rows, k2_calls)
     if "profile" in phases:
         phase_profile(dev)
@@ -685,6 +915,8 @@ def main() -> int:
         phase_host(dev)
     if "bars" in phases:
         phase_bars(dev)
+    if "parity" in phases:
+        phase_parity(dev)
     if "cli" in phases:
         phase_cli()
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f}s")

@@ -1,7 +1,8 @@
 """Mesh post-processing on the host (counterpart of the parts of
 surfd_tpu/geometry/mesh_ops.py that the generation path runs after the
-native cleanup): unreferenced-vertex removal, uniform Laplacian smoothing
-and small-component removal."""
+native cleanup and on the watertight path): unreferenced-vertex removal,
+uniform Laplacian smoothing, small-component removal and keeping the largest
+component."""
 
 from __future__ import annotations
 
@@ -67,3 +68,25 @@ def filter_small_components(mesh: Mesh, min_faces: int) -> Mesh:
     labels = face_components(mesh.faces, len(mesh.vertices))
     keep = np.bincount(labels)[labels] >= min_faces
     return remove_unreferenced_vertices(Mesh(mesh.vertices, mesh.faces[keep]))
+
+
+def keep_largest_component(mesh: Mesh, by_bbox: bool = False) -> Mesh:
+    """Keep one connected component: the one with the most faces, or with
+    `by_bbox` the one with the longest bounding-box diagonal (the first on
+    a tie). The boxes come from one sort of the vertices by component, so
+    the cost does not grow with the number of components."""
+    if len(mesh.faces) == 0:
+        return mesh
+    labels = face_components(mesh.faces, len(mesh.vertices))
+    if by_bbox:
+        vlab = np.zeros(len(mesh.vertices), np.int64)
+        vlab[mesh.faces] = labels[:, None]  # a vertex's faces share its component
+        used = np.unique(mesh.faces)
+        order = used[np.argsort(vlab[used], kind="stable")]
+        starts = np.searchsorted(vlab[order], np.arange(labels.max() + 1))
+        vs = mesh.vertices[order]
+        lo, hi = np.minimum.reduceat(vs, starts), np.maximum.reduceat(vs, starts)
+        best = int(np.argmax([float(np.linalg.norm(h - l)) for l, h in zip(lo, hi)]))
+    else:
+        best = int(np.bincount(labels).argmax())
+    return remove_unreferenced_vertices(Mesh(mesh.vertices, mesh.faces[labels == best]))

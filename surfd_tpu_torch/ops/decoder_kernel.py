@@ -22,6 +22,7 @@ design answers.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field, fields
 
 import torch
@@ -345,8 +346,10 @@ def launch_k1(pk: PackedK1, pts: torch.Tensor, precision: str) -> torch.Tensor:
         torch.cuda.current_stream(pts.device).cuda_stream,
     )
     _build.check(rc, "folded_mlp")
-    folded_udf.launches[precision] += 1
+    with _launches_lock:  # the batch generator launches from several threads
+        folded_udf.launches[precision] += 1
     return out
 
 
 folded_udf.launches = {"f32": 0, "bf16": 0}  # kernel launches per precision
+_launches_lock = threading.Lock()

@@ -1,8 +1,9 @@
 """End-to-end generation: latent → UDF grid → mesh → cleanup.
 
-Counterpart of surfd_tpu/pipelines/generate.py on its main path: DDPM
-sampling of latents, the per-latent decoder evaluator, and block-sparse
-extraction with the fused native face filter and cleanup.
+Counterpart of surfd_tpu/pipelines/generate.py on its main path: latent
+sampling (DDPM, DDIM or PLMS), the per-latent decoder evaluator, block-sparse
+extraction with the fused native face filter and cleanup, and the watertight
+alternative (signed marching at a small iso on the filled grid).
 
 Which evaluator runs where. Every decoder value on a CUDA device goes
 through kernel K1 (`ops.folded_udf`): precision "f32" for the coarse,
@@ -20,12 +21,14 @@ import numpy as np
 import torch
 
 from .. import native
-from ..diffusion import Schedule, VarType, p_sample_loop
+from ..diffusion import Schedule, VarType, ddim_sample_loop, p_sample_loop, plms_sample_loop
 from ..geometry import (
     GridFiller,
     Mesh,
     filter_small_components,
+    keep_largest_component,
     laplacian_smooth,
+    marching_tetrahedra,
     marching_tetrahedra_udf,
     remove_unreferenced_vertices,
 )
@@ -290,6 +293,40 @@ def get_mesh_from_udf(udf_fn: UdfEvaluator, cfg: MeshExtractionConfig = MeshExtr
 
 
 @torch.no_grad()
+def get_watertight_mesh_from_udf(udf_fn: UdfEvaluator,
+                                 cfg: MeshExtractionConfig = MeshExtractionConfig(),
+                                 iso: float = 0.01, return_stats: bool = False):
+    """Evaluator → the iso-`iso` shell of the UDF: the grid fill (K1 f32,
+    with `cfg.surface_bias`, so that iso applies to the bias-corrected
+    field), signed marching tetrahedra on the host, the component with the
+    longest bounding-box diagonal, renormalised to [-1, 1]. The shell of an
+    open sheet is cut by the domain wall, so it may have a boundary."""
+    dev = resolve_device(udf_fn.device)
+    times = {}
+    t0 = time.perf_counter()
+    gf = GridFiller(cfg.resolution, DOMAIN, max_batch=cfg.max_batch, max_dist=cfg.max_dist,
+                    surface_bias=cfg.surface_bias, device=dev)
+    grid = gf.fill(udf_fn)
+    times["grid_fill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = marching_tetrahedra(grid, iso=iso, coords_range=DOMAIN)
+    times["marching"] = time.perf_counter() - t0
+    raw_faces = len(mesh.faces)
+    t0 = time.perf_counter()
+    mesh = keep_largest_component(mesh, by_bbox=True)
+    if len(mesh.vertices):
+        v = mesh.vertices
+        center = (v.max(0) + v.min(0)) / 2
+        scale = np.abs(v - center).max()
+        mesh = Mesh((v - center) / max(scale, 1e-9), mesh.faces)
+    times["component"] = time.perf_counter() - t0
+    if return_stats:
+        return mesh, {"raw_faces": raw_faces, "final_faces": len(mesh.faces),
+                      "times": {k: round(v, 3) for k, v in times.items()}}
+    return mesh
+
+
+@torch.no_grad()
 def sample_latents(
     sched: Schedule,
     model_fn,
@@ -297,20 +334,29 @@ def sample_latents(
     latent_len: int,
     generator: torch.Generator | None = None,
     *,
+    sampler: str = "ddpm",
     device=None,
     clip_denoised: bool = False,
     var_type: VarType = VarType.FIXED_SMALL,
     noise: torch.Tensor | None = None,
     step_noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """DDPM-sample (B, L) latent codes; the model sees (B, L, 1).
+    """Sample (B, L) latent codes with `sampler` ("ddpm", "ddim" at η 0, or
+    "plms" of order 2); the model sees (B, L, 1). PLMS draws no step noise
+    and takes no `step_noise`.
 
     clip_denoised defaults False as in every reference generate script:
     autoencoder latents are not bounded to [-1, 1].
     """
+    loops = {"ddpm": p_sample_loop, "ddim": ddim_sample_loop, "plms": plms_sample_loop}
+    if sampler not in loops:
+        raise ValueError(f"unknown sampler: {sampler}")
+    if sampler == "plms" and step_noise is not None:
+        raise ValueError("PLMS draws no step noise")
+    kw = {} if sampler == "plms" else {"step_noise": step_noise}
     dev = resolve_device(device)
-    out = p_sample_loop(
-        sched, model_fn, (num_samples, latent_len, 1), generator, device=dev,
-        noise=noise, step_noise=step_noise, clip_denoised=clip_denoised, var_type=var_type,
+    out = loops[sampler](
+        sched, model_fn, (num_samples, latent_len, 1), generator, device=dev, noise=noise,
+        clip_denoised=clip_denoised, var_type=var_type, **kw,
     )
     return out[..., 0]
