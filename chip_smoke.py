@@ -30,13 +30,21 @@ Phases, each fatal on failure:
      within 1 % of the JAX package's, one component, max |v| = 1, K1 f32
      launched); the batch generator, two 256^3 extractions on two latents
      at depth 1 and depth 2, bit-equal;
-  6. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
+  6. the AE reconstruction eval at the deepfashion3d preset: the seeded
+     DGCNN encoder at 10,000 fixture points against the port's own CPU run
+     (kNN neighbour sets equal on >= 99.9 % of rows, latent max abs <=
+     1e-4), timed at B 1 and B 8 with its peak memory; one 512^3 extraction
+     of the sheet fixture (stage times, faces beside the JAX package's
+     count); the export CLI at --config deepfashion3d on a two-item corpus
+     (n_empty 0, Chamfer < 0.008 on the sample-only item), then again with
+     --resume (the same recon_metrics.json); K1 f32 and bf16 launched, K2 not;
+  7. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
      turns with SDPA's;
-  7. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
+  8. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
      (DDIM, guidance 2.5, two extractions at a time) and generate_uncond
      (PLMS, watertight).
 
-Phases 3-5 are the main path: each runs with the launch counts set to 0
+Phases 3-6 are the main path: each runs with the launch counts set to 0
 just before it and read just after, and no plain version may run in them.
 
 Not in the default run: `--phases build,profile` (where the time goes, and
@@ -54,6 +62,7 @@ matmuls and convolutions (float32 reference numerics).
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -68,8 +77,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "surfd_tpu", "assets", "bench_sheet_decoder.npz")
-PHASES = ("build", "kernels", "sample", "extract", "generate", "host", "cli")  # the default run
-MAIN_PATH = ("sample", "extract", "generate")  # counted: launches, no plain version
+PHASES = ("build", "kernels", "sample", "extract", "generate", "recon", "host", "cli")  # default
+MAIN_PATH = ("sample", "extract", "generate", "recon")  # counted: launches, no plain version
 EXTRA_PHASES = ("profile", "bars", "parity")
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type.
@@ -446,10 +455,15 @@ def phase_bars(dev):
             report(f"fault: {name}", dk.folded_udf(fault, pts, "bf16"), refs, K1_BF16_BARS)
 
 
+# Kernel launches that a path's subprocesses reported, by row name.
+CHILD_LAUNCHES: collections.Counter = collections.Counter()
+
+
 def reset_counts():
     from surfd_tpu_torch.ops import attention_kernel as ak
     from surfd_tpu_torch.ops import decoder_kernel as dk
 
+    CHILD_LAUNCHES.clear()
     dk.folded_udf.launches.update(f32=0, bf16=0)
     ak.qkv_attention.launches.clear()
     dk.folded_udf_ref.calls = 0
@@ -458,14 +472,16 @@ def reset_counts():
 
 
 def launch_counts() -> dict:
-    """Kernel launches since reset_counts(), by the kernels line's row names."""
+    """Kernel launches since reset_counts(), by the kernels line's row
+    names: this process's and those its subprocesses reported."""
     from surfd_tpu_torch.ops import attention_kernel as ak
     from surfd_tpu_torch.ops import decoder_kernel as dk
 
-    counts = {f"folded_mlp_{p}": n for p, n in dk.folded_udf.launches.items()}
+    counts = collections.Counter({f"folded_mlp_{p}": n for p, n in dk.folded_udf.launches.items()})
     counts.update({f"qkv_attention_T{T}_c{c}": n
                    for (T, c), n in ak.qkv_attention.launches.items()})
-    return counts
+    counts.update(CHILD_LAUNCHES)
+    return dict(counts)
 
 
 def plain_calls() -> int:
@@ -785,6 +801,269 @@ def phase_generate(dev, cfg_ref):
     return out
 
 
+# The AE reconstruction eval at the deepfashion3d preset
+# (surfd_tpu_torch/assets/configs/deepfashion3d.json): 10,000 encoder points,
+# batch 8 in training, 512^3.
+RECON_POINTS, RECON_BATCH, RECON_K = 10_000, 8, 20
+# The card's encoder latent against the port's CPU run: between the sound
+# reading (2.78e-5) and the TF32 switches left on (1.27e-4), both read on
+# an NVIDIA H100 80GB HBM3 at 700 W.
+RECON_LATENT_BAR = 6e-5
+RECON_KNN_BAR = 0.999  # share of rows whose neighbour sets equal the CPU run's
+# The JAX package's face count for the sheet fixture at 512^3, auto bias
+# (BENCH_r05.json; a count, not a time). The JAX tree may have moved since.
+JAX_FACES_512 = 11_069_489
+
+
+def seeded_encoder():
+    """Dgcnn(size_latent 32, k 20) with random weights from seed 3, on the CPU."""
+    from surfd_tpu_torch.models import Dgcnn
+
+    return Dgcnn(32, k=RECON_K).random_init_(torch.Generator().manual_seed(3))
+
+
+def encoder_clouds(n: int) -> torch.Tensor:
+    """n draws of RECON_POINTS of the fixture's 20,000 surface samples, (n, N, 3)."""
+    from surfd_tpu_torch.data import random_point_sampling
+    from surfd_tpu_torch.utils.convert import load_sheet_fixture
+
+    samples = load_sheet_fixture(FIXTURE)["surface_samples"]
+    rng = np.random.default_rng(5)
+    return torch.from_numpy(np.stack(
+        [random_point_sampling(samples, RECON_POINTS, rng) for _ in range(n)]))
+
+
+def encoder_reference():
+    """The port's own CPU run of the seeded encoder on the first cloud:
+    kNN indices, latent and wall time."""
+    from surfd_tpu_torch.models import knn_indices
+
+    pts = encoder_clouds(1)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        idx, lat = knn_indices(pts, RECON_K), seeded_encoder()(pts)
+    return idx, lat, time.perf_counter() - t0
+
+
+def dgcnn_flat(enc) -> dict:
+    """The encoder's weights in the JAX package's flat-key npz layout
+    (`ae_encoder.npz`: `params/...`, `batch_stats/...`)."""
+    out = {}
+    for i, name in enumerate([f"block{j}" for j in range(1, 5)] + ["head"], 1):
+        conv, bn = getattr(enc, f"conv_{i}"), getattr(enc, f"bn_{i}")
+        out[f"params/{name}_conv/kernel"] = conv.weight.detach().cpu().numpy().T
+        out[f"params/{name}_bn/scale"] = bn.weight.detach().cpu().numpy()
+        out[f"params/{name}_bn/bias"] = bn.bias.detach().cpu().numpy()
+        out[f"batch_stats/{name}_bn/mean"] = bn.running_mean.cpu().numpy()
+        out[f"batch_stats/{name}_bn/var"] = bn.running_var.cpu().numpy()
+    return out
+
+
+def write_recon_corpus(root: str, dev) -> None:
+    """ae/ (the fixture decoder; the seeded encoder with its head planted:
+    BatchNorm scale 1e-3 and shift the fixture latent, all positive, so the
+    encoder outputs the fixture latent plus a small input-dependent term)
+    and data/test/ with two items, both the fixture's 20,000 samples as
+    their cloud; skirt_001 also carries a ground-truth mesh, the port's
+    256^3 extraction of the fixture latent on the card."""
+    from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf, make_udf_fn
+
+    ae, data = os.path.join(root, "ae"), os.path.join(root, "data", "test")
+    os.makedirs(ae)
+    os.makedirs(data)
+    with np.load(FIXTURE) as z:
+        np.savez(os.path.join(ae, "ae_decoder.npz"),
+                 **{k[4:]: np.asarray(z[k], np.float32) for k in z.files if k.startswith("dec/")})
+    dec, fx = load_fixture_decoder(dev)
+    enc = seeded_encoder()
+    with torch.no_grad():
+        enc.bn_5.weight.fill_(1e-3)
+        enc.bn_5.bias.copy_(torch.from_numpy(fx["latent"]))
+    np.savez(os.path.join(ae, "ae_encoder.npz"), **dgcnn_flat(enc))
+    gt = get_mesh_from_udf(make_udf_fn(dec, None, torch.from_numpy(fx["latent"]),
+                                       fx["max_dist"], device=dev),
+                           MeshExtractionConfig(resolution=256, surface_bias="auto"))
+    small = {"coords": np.zeros((8, 3), np.float32), "labels": np.zeros(8, np.float32),
+             "gradients": np.zeros((8, 3), np.float32)}
+    pcd = fx["surface_samples"]
+    np.savez(os.path.join(data, "dress_000.npz"), pcd=pcd, **small)
+    np.savez(os.path.join(data, "skirt_001.npz"), pcd=pcd, vertices=gt.vertices,
+             triangles=gt.faces.astype(np.int32), **small)
+
+
+def phase_recon(dev, enc_ref):
+    """The AE reconstruction eval at the deepfashion3d preset: (a) the
+    seeded encoder at 10,000 points against the port's CPU run and timed at
+    B 1 and B 8; (b) one direct 512^3 extraction of the sheet fixture;
+    (c) the export CLI at --config deepfashion3d on a two-item corpus,
+    then again with --resume. `enc_ref`: encoder_reference()."""
+    from surfd_tpu_torch.cli.export_meshes import K1_CALLS
+    from surfd_tpu_torch.geometry.metrics import chamfer_distance
+    from surfd_tpu_torch.models import dgcnn
+    from surfd_tpu_torch.ops import decoder_kernel as dk
+    from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf, make_udf_fn
+    from surfd_tpu_torch.utils import use_full_f32
+
+    out = {}
+    idx_ref, lat_ref, _ = enc_ref
+    enc = seeded_encoder().to(dev)
+    clouds = encoder_clouds(RECON_BATCH).to(dev)
+
+    def against_cpu(label, cloud, ref):
+        """kNN sets and latent of the card's encoder on `cloud` (1, N, 3)
+        against the CPU run's `ref` (indices, latent): (indices, rows
+        equal, share equal, latent max abs)."""
+        with torch.no_grad():
+            idx, lat = dgcnn.knn_indices(cloud, RECON_K).cpu(), enc(cloud).cpu()
+        same = (np.sort(idx.numpy(), -1) == np.sort(ref[0].numpy(), -1)).all(-1)
+        n_same, share = int(same.sum()), float(same.mean())
+        err = float((lat - ref[1]).abs().max())
+        log(f"[recon] encoder{label}, {RECON_POINTS} points, k {RECON_K}: kNN sets equal to the "
+            f"CPU run's on {n_same} of {same.size} rows ({100 * share:.3f} %, bar "
+            f"{100 * RECON_KNN_BAR:g} %), latent max abs {err!r} (bar {RECON_LATENT_BAR:g}), "
+            f"latent max |x| {float(lat.abs().max()):.4f}")
+        return idx, same, share, err
+
+    idx, same, share, err = against_cpu("", clouds[:1], (idx_ref, lat_ref))
+    # where the sets differ: the float64 squared distances of the
+    # neighbours only one side chose (0 means exact ties at the k-th place)
+    p64, gaps = clouds[0].double().cpu().numpy(), []
+    for r in np.flatnonzero(~same[0]):
+        a, b = idx[0, r].numpy(), idx_ref[0, r].numpy()
+        d = [np.sort(((p64[np.setdiff1d(x, y)] - p64[r]) ** 2).sum(-1)) for x, y in
+             ((a, b), (b, a))]
+        gaps.append(float(np.abs(d[0] - d[1]).max()))
+    if gaps:
+        log(f"[recon] rows with other neighbour sets: {len(gaps)}; max |difference| of the "
+            f"swapped neighbours' float64 squared distances {max(gaps)!r}")
+    if not (share >= RECON_KNN_BAR and err <= RECON_LATENT_BAR):
+        raise RuntimeError("recon: the card's encoder is off the CPU run's bars")
+    # The fixture's samples are stored in f16, so each coordinate is a tf32
+    # value and a TF32 Gram would sum the same exact products. A second
+    # cloud, the first plus uniform jitter of 1e-4, is not: the sound
+    # encoder is held to the bars on it too, and a TF32 Gram is planted there.
+    jittered = clouds[:1].cpu() + torch.from_numpy(np.random.default_rng(6).uniform(
+        -1e-4, 1e-4, (1, RECON_POINTS, 3)).astype(np.float32))
+    with torch.no_grad():
+        ref_j = dgcnn.knn_indices(jittered, RECON_K), seeded_encoder()(jittered)
+    jittered = jittered.to(dev)
+    _, _, share_j, err_j = against_cpu(" on the jittered cloud", jittered, ref_j)
+    out["jittered"] = {"knn_share": share_j, "latent_err": err_j}
+    if not (share_j >= RECON_KNN_BAR and err_j <= RECON_LATENT_BAR):
+        raise RuntimeError("recon: the card's encoder is off the CPU run's bars (jittered cloud)")
+    # Planted faults the bars must reject: (i) torch's TF32 switches left on
+    # (cuBLAS may then run the edge Dense and the Gram in TF32), on the
+    # fixture cloud; (ii) a tensor-core TF32 Gram (operands rounded to tf32,
+    # f32 sums, the norms in f32), on the jittered cloud.
+    knn_f32 = dgcnn.knn_indices
+
+    def knn_tf32_gram(points, k):
+        r, sq = dk.round_tf32(points), (points * points).sum(-1)
+        d = torch.bmm(r, r.transpose(1, 2)).mul_(-2.0).add_(sq[:, :, None]).add_(sq[:, None, :])
+        return torch.topk(d, k, dim=-1, largest=False).indices
+
+    for label, tf32, knn, cloud, ref in (
+            (" with the TF32 switches on (planted fault)", True, knn_f32, clouds[:1],
+             (idx_ref, lat_ref)),
+            (" on the jittered cloud with a TF32 Gram (planted fault)", False, knn_tf32_gram,
+             jittered, ref_j)):
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        dgcnn.knn_indices = knn
+        try:
+            _, _, f_share, f_err = against_cpu(label, cloud, ref)
+        finally:
+            dgcnn.knn_indices = knn_f32
+            use_full_f32()
+        out.setdefault("tf32_faults", []).append({"fault": label, "knn_share": f_share,
+                                                  "latent_err": f_err})
+        if f_share >= RECON_KNN_BAR and f_err <= RECON_LATENT_BAR:
+            raise RuntimeError(f"recon: the encoder's bars pass a planted fault:{label}")
+    del jittered
+    with torch.no_grad():
+        for B in (1, RECON_BATCH):
+            x = clouds[:B]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: enc(x), reps=10)
+            peak = torch.cuda.max_memory_allocated()
+            knn_ms = time_ms(lambda: dgcnn.knn_indices(x, RECON_K), reps=10)
+            out[f"encoder_B{B}"] = {"ms": ms, "knn_ms": knn_ms, "peak_bytes": peak}
+            log(f"[recon] encoder B {B} x {RECON_POINTS} points: {ms:.3f} ms (kNN alone "
+                f"{knn_ms:.3f} ms), peak memory allocated {peak / 2**30:.3f} GiB")
+    del clouds, enc
+
+    dec, fx = load_fixture_decoder(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    udf_fn = make_udf_fn(dec, None, torch.from_numpy(fx["latent"]), fx["max_dist"], device=dev)
+    mesh, stats = get_mesh_from_udf(
+        udf_fn, cfg=MeshExtractionConfig(resolution=512, surface_bias="auto"), return_stats=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if stats["oob_vertices"] or len(mesh.faces) <= 10_000:
+        raise RuntimeError(f"512^3: {stats['oob_vertices']} oob vertices, {len(mesh.faces)} faces")
+    sub = mesh.vertices[np.random.default_rng(0).choice(
+        len(mesh.vertices), min(20_000, len(mesh.vertices)), replace=False)]
+    cd = chamfer_distance(sub, fx["surface_samples"])
+    if not cd < 0.008:
+        raise RuntimeError(f"512^3: chamfer {cd} >= 0.008")
+    gap = (len(mesh.faces) - JAX_FACES_512) / JAX_FACES_512
+    log(f"[recon] 512^3 sheet: {len(mesh.vertices)} verts / {len(mesh.faces)} faces "
+        f"({100 * gap:+.4f} % from BENCH_r05's JAX count {JAX_FACES_512}), chamfer {cd:.5f}, "
+        f"face ratio {stats['face_budget_ratio']} (explosion flag {stats['face_explosion']}), "
+        f"ff_unsure {stats.get('ff_unsure')}, {dt:.2f}s, peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[recon] 512^3 times {json.dumps(stats['times'])}")
+    out.update(extract_512_s=dt, faces_512=len(mesh.faces), times_512=stats["times"])
+    del mesh, udf_fn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_recon_corpus(tmp, dev)
+        res_dir = os.path.join(tmp, "recon")
+        cmd = [sys.executable, "-m", "surfd_tpu_torch.cli.export_meshes", "--config",
+               "deepfashion3d", "--surface_bias", "auto", "--data_root", os.path.join(tmp, "data"),
+               "--ae_dir", os.path.join(tmp, "ae"), "--output_dir", res_dir]
+        summaries, walls, calls = [], [], []
+        for extra in ([], ["--resume"]):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd + extra, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            walls.append(time.perf_counter() - t0)
+            if r.returncode != 0:
+                raise RuntimeError(f"export_meshes {extra} failed ({r.returncode}):\n"
+                                   f"{r.stderr[-4000:]}")
+            with open(os.path.join(res_dir, "recon_metrics.json")) as f:
+                summaries.append(json.load(f))
+            for line in r.stderr.strip().splitlines()[-3:]:
+                log("[recon]   " + line)
+            calls.append(json.loads(r.stderr.strip().splitlines()[-1].removeprefix(K1_CALLS)))
+        first, resumed = summaries
+        # the first run extracts both items through the kernels; the rerun extracts nothing
+        if (not (calls[0]["launches"]["f32"] and calls[0]["launches"]["bf16"])
+                or calls[0]["plain_calls"] or calls[1]["plain_calls"]):
+            raise RuntimeError(f"export_meshes: decoder kernel calls {calls}")
+        rows = {row["id"]: row for row in first["per_item"]}
+        log(f"[recon] export_meshes --config deepfashion3d (latent 32, {RECON_POINTS} points, "
+            f"512^3), two items: {walls[0]:.1f}s; --resume {walls[1]:.1f}s; rows "
+            f"{json.dumps(first['per_item'])}")
+        if first["n"] != 2 or first["n_empty"] != 0:
+            raise RuntimeError(f"export_meshes: n {first['n']}, n_empty {first['n_empty']}")
+        if not rows["dress_000"]["chamfer"] < 0.008:
+            raise RuntimeError(f"export_meshes: chamfer {rows['dress_000']['chamfer']} >= 0.008")
+        if resumed != first:
+            raise RuntimeError("export_meshes --resume wrote another recon_metrics.json")
+        out.update(cli_s=walls, cli_rows=first["per_item"])
+
+    for c in calls:  # the CLI's own launches, counted by its process's wrappers
+        for prec, n in c["launches"].items():
+            CHILD_LAUNCHES[f"folded_mlp_{prec}"] += n
+    counts = launch_counts()
+    k2 = sum(n for name, n in counts.items() if name.startswith("qkv_attention"))
+    if not (counts["folded_mlp_f32"] and counts["folded_mlp_bf16"]) or k2:
+        raise RuntimeError(f"recon: launches {counts}; want K1 f32 and bf16, no K2")
+    return out
+
+
 def phase_parity(dev):
     """The sheet fixture at 128^3 (not part of the default run): the card's
     mesh against the port's own CPU mesh (faces within 1 %, symmetric mean
@@ -888,8 +1167,13 @@ def main() -> int:
     if "generate" in phases:  # the CPU reference, outside the counted paths
         cfg_ref, t_ref = cfg_sample(category_mdm(), "ddim", torch.device("cpu"))
         log(f"[generate] CPU reference DDIM run ({torch.get_num_threads()} threads): {t_ref:.2f}s")
+    if "recon" in phases:  # the CPU reference of the encoder, outside the counted paths
+        enc_ref = encoder_reference()
+        log(f"[recon] CPU reference encoder run, B 1 x {RECON_POINTS} points "
+            f"({torch.get_num_threads()} threads): {enc_ref[2]:.2f}s")
     paths = {"sample": lambda: phase_sample(dev), "extract": lambda: phase_extract(dev),
-             "generate": lambda: phase_generate(dev, cfg_ref)}
+             "generate": lambda: phase_generate(dev, cfg_ref),
+             "recon": lambda: phase_recon(dev, enc_ref)}
     by_path = {}
     for name in MAIN_PATH:
         if name not in phases:

@@ -161,12 +161,12 @@ def load_denoiser(args, cond_mode: str, device):
 def load_decoder(args, device):
     """CbnDecoder from --ae_dir/ae_decoder.npz or seeded random weights."""
     from ..models import CbnDecoder
-    from ..utils.convert import decoder_state_from_flax, load_decoder_npz, strip_prefix
+    from ..utils.convert import decoder_state_from_flax, load_flax_npz, strip_prefix
 
     dec = CbnDecoder(args.latent_size, args.decoder_hidden, args.decoder_layers)
     path = os.path.join(args.ae_dir, "ae_decoder.npz") if args.ae_dir else ""
     if path and os.path.exists(path):
-        sd = decoder_state_from_flax(load_decoder_npz(path))
+        sd = decoder_state_from_flax(load_flax_npz(path))
         dec.load_state_dict(strip_prefix(sd, "decoder."), strict=True)
     else:
         if not args.random_init:

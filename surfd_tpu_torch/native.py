@@ -1,11 +1,12 @@
 """ctypes bindings for the repo's native C++ geometry runtime (`native/*.cpp`).
 
-The port's own copy of the calls its generation path uses: marching passes
-(`mt_active_cubes_blocks`, `mt_corner_ranks`, `mt_emit`), the fused u16
-block scatter, the face-filter prep and fused cleanup, and the radix-sorted
-unique. The library is built from `native/` with the g++ line of
-`native/build.sh` into `surfd_tpu_torch/_native/` at first use, and rebuilt
-when a source is newer. Host-side only; it does not depend on the framework.
+The port's own copy of the calls its generation and evaluation paths use:
+marching passes (`mt_active_cubes_blocks`, `mt_corner_ranks`, `mt_emit`),
+the fused u16 block scatter, the face-filter prep and fused cleanup, the
+radix-sorted unique and the closest-point BVH query. The library is built
+from `native/` with the g++ line of `native/build.sh` into
+`surfd_tpu_torch/_native/` at first use, and rebuilt when a source is newer.
+Host-side only; it does not depend on the framework.
 """
 
 from __future__ import annotations
@@ -68,6 +69,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     c_f, c_i32, c_i64 = ctypes.c_float, ctypes.c_int32, ctypes.c_int64
     sig = {
         "surfd_free": (None, [ctypes.c_void_p]),
+        "surfd_closest_points": (ctypes.c_int, [
+            _fp, c_i64, _ip, c_i64, _fp, c_i64, _fp, _fp, _ip]),
         "surfd_unique_inverse_i64": (c_i64, [_i64p, c_i64, ctypes.POINTER(_i64p), _i64p]),
         "surfd_face_filter_prep_q16": (c_i64, [
             _fp, c_i64, _i64p, c_i64, c_f, c_f, ctypes.POINTER(_u16p),
@@ -121,6 +124,29 @@ def _f32(a):
 
 def _i64(a):
     return np.ascontiguousarray(a, dtype=np.int64)
+
+
+def closest_points(vertices, triangles, queries):
+    """Distance, closest point and triangle id of each query on a triangle
+    mesh (BVH): ((Q,) f32, (Q, 3) f32, (Q,) int32)."""
+    lib = load()
+    v, q = _f32(vertices), _f32(queries)
+    t = np.ascontiguousarray(triangles, dtype=np.int32)
+    for name, a in (("vertices", v), ("triangles", t), ("queries", q)):
+        if a.ndim != 2 or a.shape[1] != 3:
+            raise ValueError(f"{name} must be (n, 3), got {a.shape}")
+    if len(t) and (t.min() < 0 or t.max() >= len(v)):
+        raise ValueError("triangle indices out of range")
+    out_d = np.empty(len(q), np.float32)
+    out_c = np.empty((len(q), 3), np.float32)
+    out_t = np.empty(len(q), np.int32)
+    rc = lib.surfd_closest_points(
+        v.ctypes.data_as(_fp), len(v), t.ctypes.data_as(_ip), len(t), q.ctypes.data_as(_fp),
+        len(q), out_d.ctypes.data_as(_fp), out_c.ctypes.data_as(_fp), out_t.ctypes.data_as(_ip),
+    )
+    if rc != 0:
+        raise RuntimeError(f"surfd_closest_points failed with code {rc}")
+    return out_d, out_c, out_t
 
 
 def mt_active_cubes_blocks(udf, near_thr: float, avg_thr: float, scan_blocks, block: int):

@@ -6,8 +6,10 @@ Layout rules (the inverse of the JAX package's torch converters):
   Flax Dense kernel as a 1×1 conv    → Conv1d weight (out, in, 1):     K.T[:, :, None]
   Flax Conv kernel (k, in, out)      → Conv1d weight (out, in, k):     K.transpose(2, 1, 0)
   Flax batch_stats mean/var          → BatchNorm running_mean/var (+ num_batches_tracked)
+  Flax BatchNorm scale/bias          → BatchNorm weight/bias
 
-The decoder comes out under `decoder.*`, the denoiser under `Unet.*`. Unlike
+The decoder comes out under `decoder.*`, the denoiser under `Unet.*`, the
+encoder unprefixed (`conv_1..5`, `bn_1..5`). Unlike
 the upstream export, the category model keeps its CFG null-class row as the
 last row of `label_emb` (upstream checkpoints lack it; `pad_null_class_row`
 restores it as zeros).
@@ -77,6 +79,20 @@ def decoder_state_from_flax(variables) -> StateDict:
         _conv1x1(sd, f"{b}.fc_0", p["fc_0"])
         _conv1x1(sd, f"{b}.fc_1", p["fc_1"])
     cbn("decoder.bn", params["bn_out"], stats["bn_out"])
+    return sd
+
+
+def dgcnn_state_from_flax(variables) -> StateDict:
+    """Dgcnn {'params', 'batch_stats'} → the upstream encoder state dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    names = [f"block{i}" for i in range(1, 5)] + ["head"]
+    sd: StateDict = {}
+    for i, name in enumerate(names, 1):
+        _dense(sd, f"conv_{i}", params[f"{name}_conv"])
+        bn = params[f"{name}_bn"]
+        sd[f"bn_{i}.weight"] = _t(bn["scale"])
+        sd[f"bn_{i}.bias"] = _t(bn["bias"])
+        _bn_stats(sd, f"bn_{i}", stats[f"{name}_bn"])
     return sd
 
 
@@ -171,12 +187,13 @@ def nest_flat_keys(flat: dict, prefix: str = "") -> dict:
     return tree
 
 
-def load_decoder_npz(path: str) -> dict:
-    """Flax CbnDecoder variables from a flat npz (`params/...`,
-    `batch_stats/...` keys; the JAX package's `ae_decoder.npz`)."""
+def load_flax_npz(path: str) -> dict:
+    """Flax variables from a flat npz (`params/...`, `batch_stats/...` keys):
+    the JAX package's `ae_decoder.npz` or `ae_encoder.npz`."""
     with np.load(path) as z:
         flat = {k: np.asarray(z[k], np.float32) for k in z.files}
     return nest_flat_keys(flat)
+
 
 
 def load_sheet_fixture(path: str) -> dict:
