@@ -7,8 +7,9 @@ Phases, each fatal on failure:
      the host geometry library from native/ (set-up, outside the timings);
      count the tensor-core (HGMMA) instructions of each kernel with
      cuobjdump: both K1 kernels (f32 3xTF32, bf16) must have some;
-  2. each kernel against its plain PyTorch version at main-path shapes
-     (max abs error, kernel / plain / library time, bound; for K2 also the
+  2. each kernel against its plain PyTorch version at main-path shapes (K2
+     at latent 32 and 64; max abs error, kernel / plain / library time,
+     bound; for K2 also the
      device-only time per call from torch.profiler); K1 f32 with its
      3xTF32 bound, and in its log line the FP32 bound and the weight bytes
      a call streams if every CTA reads every slab; K1 bf16
@@ -33,18 +34,31 @@ Phases, each fatal on failure:
   6. the AE reconstruction eval at the deepfashion3d preset: the seeded
      DGCNN encoder at 10,000 fixture points against the port's own CPU run
      (kNN neighbour sets equal on >= 99.9 % of rows, latent max abs <=
-     1e-4), timed at B 1 and B 8 with its peak memory; one 512^3 extraction
+     6e-5), timed at B 1 and B 8 with its peak memory; one 512^3 extraction
      of the sheet fixture (stage times, faces beside the JAX package's
      count); the export CLI at --config deepfashion3d on a two-item corpus
      (n_empty 0, Chamfer < 0.008 on the sample-only item), then again with
      --resume (the same recon_metrics.json); K1 f32 and bf16 launched, K2 not;
-  7. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
+  7. text, sketch and image conditioning at latent 64 (the text2shape and
+     pix3d presets): CLIP ViT-B/32 at its published widths with seeded
+     weights, on prompts tokenised by the port's BPE copy (one past 77
+     tokens) and on a masked image through image_context, against the
+     port's own CPU run (max abs <= COND_CLIP_BAR; TF32 turned on, a
+     planted fault, must fail it), timed at B 1 and B 16 with its peak
+     memory; the full-width text MDM, CFG 2.5 at B = 2 (K2 at B 4) over
+     ddim50 from that context, against the CPU run (max abs <= 1e-3), K2
+     exactly 800 launches; generate_text, generate_sketch, generate_image
+     and encode_contexts --mode sketch in subprocesses at 128^3 (a CLIP npz
+     written by save_clip_params, the sheet fixture's decoder planted to
+     ignore the latent), each reporting its kernel launches and no
+     plain-version call;
+  8. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
      turns with SDPA's;
-  8. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
+  9. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
      (DDIM, guidance 2.5, two extractions at a time) and generate_uncond
      (PLMS, watertight).
 
-Phases 3-6 are the main path: each runs with the launch counts set to 0
+Phases 3-7 are the main path: each runs with the launch counts set to 0
 just before it and read just after, and no plain version may run in them.
 
 Not in the default run: `--phases build,profile` (where the time goes, and
@@ -77,8 +91,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "surfd_tpu", "assets", "bench_sheet_decoder.npz")
-PHASES = ("build", "kernels", "sample", "extract", "generate", "recon", "host", "cli")  # default
-MAIN_PATH = ("sample", "extract", "generate", "recon")  # counted: launches, no plain version
+PHASES = ("build", "kernels", "sample", "extract", "generate", "recon", "condition", "host",
+          "cli")  # default
+MAIN_PATH = ("sample", "extract", "generate", "recon", "condition")  # counted: launches, no plain version
 EXTRA_PHASES = ("profile", "bars", "parity")
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type.
@@ -102,7 +117,12 @@ K1_BF16_BARS = {"tc_max": 4e-3, "tc_mean": 2e-7, "plain_max": 4e-3}
 K1_TPU = "surfd_tpu/ops/decoder_kernel.py:146 (_decoder_kernel, commit a9ab519^)"
 K2_SRC = "surfd_tpu_torch/ops/csrc/qkv_attention.cu"
 K2_TPU = "surfd_tpu/ops/attention_kernel.py:32 (_attn_kernel, commit a9ab519^)"
-K2_SHAPES = ((32, 28), (16, 56), (8, 112), (4, 112))  # (T, c) at latent 32, 224 ch, 8 heads
+# (T, c, B) of the main path, 224 channels, 8 heads: latent 32 at B 2 (the
+# DDPM sample; CFG runs them at B 4 too), then latent 64 at B 4 (the text
+# CFG pass of phase condition). A row per (T, c), timed at the first B listed;
+# T 8, c 112 is at both latents, and its B 4 reading goes in its row as "B4".
+K2_TIMED = ((32, 28, 2), (16, 56, 2), (8, 112, 2), (4, 112, 2),
+            (64, 28, 4), (32, 56, 4), (16, 112, 4), (8, 112, 4))
 # The JAX package's face count for the sheet fixture at 256^3, auto bias
 # (surfd_tpu on the CPU, max_batch 2^16; ROADMAP queue 1 item 1). The card
 # has no JAX, so the number is kept here.
@@ -305,8 +325,8 @@ def phase_kernels(dev, hgmma=None):
 
     heads = 8
     rng = np.random.default_rng(1)
-    k2_calls = {}
-    for T, c in K2_SHAPES:
+    k2_calls, k2_rows = {}, {}
+    for T, c in dict.fromkeys((T, c) for T, c, _ in K2_TIMED):
         for B in (1, 2, 4):  # B 4: the CFG pass of B 2
             qkv = torch.from_numpy(
                 rng.normal(size=(B, T, 3 * heads * c)).astype(np.float32)
@@ -325,7 +345,7 @@ def phase_kernels(dev, hgmma=None):
                 if not errs[layout] <= 2e-5:
                     raise RuntimeError(f"K2 {layout} T={T} c={c} B={B}: max abs err "
                                        f"{errs[layout]} > 2e-5")
-            if B != 2:
+            if (T, c, B) not in K2_TIMED:
                 continue
             err = max(errs.values())
             q, k, v = (t.permute(0, 2, 1, 3) for t in
@@ -335,16 +355,20 @@ def phase_kernels(dev, hgmma=None):
             ms, tok_ms, lib_ms = time_ms_turns(
                 [kern, lambda: ak.qkv_attention(qkv, heads), sdpa], inner=200)
             plain_ms = time_ms(lambda: ak.qkv_attention_ref(qkv_cf, heads), inner=50)
-            k2_calls[f"qkv_attention_T{T}_c{c}"] = (kern, sdpa)
+            name = f"qkv_attention_T{T}_c{c}"
+            k2_calls[name, B] = (kern, sdpa)
             flops = B * heads * (4.0 * T * T * c + 5.0 * T * T)
             b_ms, b_by = bound(4.0 * B * T * 4 * heads * c, flops, "f32")
-            rows.append({
-                "name": f"qkv_attention_T{T}_c{c}", "route": "cuda", "source": K2_SRC,
-                "replaces": K2_TPU, "launches": 0, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "shape": f"B={B} T={T} H={heads} c={c} channel-first",
-                "token_major_ms": tok_ms,
-            })
+            reading = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": lib_ms, "token_major_ms": tok_ms}
+            if name in k2_rows:  # the shape at a second batch size
+                k2_rows[name][f"B{B}"] = reading
+            else:
+                k2_rows[name] = {
+                    "name": name, "route": "cuda", "source": K2_SRC, "replaces": K2_TPU,
+                    "launches": 0, **reading, "shape": f"B={B} T={T} H={heads} c={c} channel-first",
+                }
+                rows.append(k2_rows[name])
             log(f"[kernels] K2 T={T} c={c} B={B}: err token-major {errs['token-major']:.3g} "
                 f"channel-first {errs['channel-first']:.3g}; kernel {ms * 1e3:.2f} us "
                 f"(token-major {tok_ms * 1e3:.2f} us) plain {plain_ms * 1e3:.2f} us "
@@ -356,16 +380,16 @@ def k2_device_times(rows, k2_calls):
     """K2's and SDPA's device-only time per call (torch.profiler), into the
     K2 rows. Run after the main path, so that no profiler session comes
     before its timings."""
-    for row in rows:
-        if row["name"] not in k2_calls:
-            continue
-        kern, sdpa = k2_calls[row["name"]]
-        row["device_us"], n_k2 = device_us_per_call(kern, "qkv_attention")
+    by_name = {row["name"]: row for row in rows}
+    for (name, B), (kern, sdpa) in k2_calls.items():
+        row = by_name[name]
+        reading = row.get(f"B{B}", row)
+        reading["device_us"], n_k2 = device_us_per_call(kern, "qkv_attention")
         # every kernel SDPA launches
-        row["library_device_us"], n_sdpa = device_us_per_call(sdpa, "")
-        log(f"[kernels] {row['name']} device-only: K2 {row['device_us']:.2f} us, "
-            f"SDPA {row['library_device_us']:.2f} us (event-timed {row['ms'] * 1e3:.2f} / "
-            f"{row['library_ms'] * 1e3:.2f} us; launches recorded {n_k2} / {n_sdpa} of 200)")
+        reading["library_device_us"], n_sdpa = device_us_per_call(sdpa, "")
+        log(f"[kernels] {name} B {B} device-only: K2 {reading['device_us']:.2f} us, "
+            f"SDPA {reading['library_device_us']:.2f} us (event-timed {reading['ms'] * 1e3:.2f} / "
+            f"{reading['library_ms'] * 1e3:.2f} us; launches recorded {n_k2} / {n_sdpa} of 200)")
 
 
 def planted_faults(folded, prec):
@@ -474,21 +498,39 @@ def reset_counts():
 def launch_counts() -> dict:
     """Kernel launches since reset_counts(), by the kernels line's row
     names: this process's and those its subprocesses reported."""
-    from surfd_tpu_torch.ops import attention_kernel as ak
-    from surfd_tpu_torch.ops import decoder_kernel as dk
+    from surfd_tpu_torch.ops import kernel_calls
 
-    counts = collections.Counter({f"folded_mlp_{p}": n for p, n in dk.folded_udf.launches.items()})
-    counts.update({f"qkv_attention_T{T}_c{c}": n
-                   for (T, c), n in ak.qkv_attention.launches.items()})
+    counts = collections.Counter(kernel_calls()["launches"])
     counts.update(CHILD_LAUNCHES)
     return dict(counts)
 
 
 def plain_calls() -> int:
-    from surfd_tpu_torch.ops import attention_kernel as ak
-    from surfd_tpu_torch.ops import decoder_kernel as dk
+    from surfd_tpu_torch.ops import kernel_calls
 
-    return dk.folded_udf_ref.calls + dk.folded_udf_mixed_ref.calls + ak.qkv_attention_ref.calls
+    return kernel_calls()["plain_calls"]
+
+
+def run_cli(module: str, argv: list, label: str):
+    """One CLI of the port in a subprocess, which must make no plain-version
+    call: its wall time, stderr lines and kernel launches (its last stderr
+    line), which go into CHILD_LAUNCHES."""
+    from surfd_tpu_torch.cli._common import KERNEL_CALLS
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"surfd_tpu_torch.cli.{module}", *argv], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"{module} failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    lines = r.stderr.strip().splitlines()
+    calls = json.loads(lines[-1].removeprefix(KERNEL_CALLS))
+    for line in lines[-4:]:
+        log(f"[{label}]   " + line)
+    if calls["plain_calls"]:
+        raise RuntimeError(f"{module}: {calls['plain_calls']} plain-version calls")
+    CHILD_LAUNCHES.update(calls["launches"])
+    return dt, lines, calls["launches"]
 
 
 def phase_sample(dev):
@@ -678,22 +720,22 @@ def category_mdm():
     return mdm.eval()
 
 
-def cfg_sample(mdm, sampler: str, dev):
-    """(B, 32) latents of the CFG denoiser (guidance 2.5) on `dev`, over the
+def cfg_sample(mdm, sampler: str, dev, L: int = 32, **cond):
+    """(B, L) latents of the CFG denoiser (guidance 2.5) on `dev`, over the
     ddim50 schedule, from injected noise (numpy seed 20); DDIM at eta 0 or
-    PLMS of order 2. Returns the latents and the wall time."""
+    PLMS of order 2. `cond`: the B samples' `action` or `context` on `dev`.
+    Returns the latents and the wall time."""
     from surfd_tpu_torch.diffusion import named_beta_schedule, space_timesteps, spaced_schedule
     from surfd_tpu_torch.models import make_cfg_model_fn
     from surfd_tpu_torch.pipelines import sample_latents
 
     sched = spaced_schedule(named_beta_schedule("cosine", 1000), space_timesteps(1000, CFG_STEPS))
-    B, L = len(CFG_ACTIONS), 32
+    B = len(next(iter(cond.values())))
     rng = np.random.default_rng(20)
     noise = torch.from_numpy(rng.normal(size=(B, L, 1)).astype(np.float32))
     steps = torch.from_numpy(
         rng.normal(size=(sched.num_timesteps, B, L, 1)).astype(np.float32))
-    action = torch.tensor(CFG_ACTIONS, dtype=torch.int64, device=dev)
-    model_fn = make_cfg_model_fn(mdm, 2.5, action=action)
+    model_fn = make_cfg_model_fn(mdm, 2.5, **cond)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -703,6 +745,10 @@ def cfg_sample(mdm, sampler: str, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return lat, time.perf_counter() - t0
+
+
+def category_actions(dev) -> torch.Tensor:
+    return torch.tensor(CFG_ACTIONS, dtype=torch.int64, device=dev)
 
 
 def boundary_vertices(mesh) -> int:
@@ -731,7 +777,7 @@ def phase_generate(dev, cfg_ref):
     def counted(sampler, want):
         """One CFG run on the card and its K2 launches, which must be `want`."""
         n0 = sum(ak.qkv_attention.launches.values())
-        lat, dt = cfg_sample(mdm, sampler, dev)
+        lat, dt = cfg_sample(mdm, sampler, dev, action=category_actions(dev))
         n = sum(ak.qkv_attention.launches.values()) - n0
         if n != want:
             raise RuntimeError(f"K2 launched {n} times in one {sampler} run, want {want}")
@@ -897,7 +943,6 @@ def phase_recon(dev, enc_ref):
     B 1 and B 8; (b) one direct 512^3 extraction of the sheet fixture;
     (c) the export CLI at --config deepfashion3d on a two-item corpus,
     then again with --resume. `enc_ref`: encoder_reference()."""
-    from surfd_tpu_torch.cli.export_meshes import K1_CALLS
     from surfd_tpu_torch.geometry.metrics import chamfer_distance
     from surfd_tpu_torch.models import dgcnn
     from surfd_tpu_torch.ops import decoder_kernel as dk
@@ -1021,27 +1066,19 @@ def phase_recon(dev, enc_ref):
     with tempfile.TemporaryDirectory() as tmp:
         write_recon_corpus(tmp, dev)
         res_dir = os.path.join(tmp, "recon")
-        cmd = [sys.executable, "-m", "surfd_tpu_torch.cli.export_meshes", "--config",
-               "deepfashion3d", "--surface_bias", "auto", "--data_root", os.path.join(tmp, "data"),
-               "--ae_dir", os.path.join(tmp, "ae"), "--output_dir", res_dir]
+        argv = ["--config", "deepfashion3d", "--surface_bias", "auto", "--data_root",
+                os.path.join(tmp, "data"), "--ae_dir", os.path.join(tmp, "ae"), "--output_dir", res_dir]
         summaries, walls, calls = [], [], []
-        for extra in ([], ["--resume"]):
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd + extra, cwd=ROOT, capture_output=True, text=True, timeout=600)
-            walls.append(time.perf_counter() - t0)
-            if r.returncode != 0:
-                raise RuntimeError(f"export_meshes {extra} failed ({r.returncode}):\n"
-                                   f"{r.stderr[-4000:]}")
+        for extra in ([], ["--resume"]):  # run_cli: no plain-version call in either
+            dt, _, launches = run_cli("export_meshes", argv + extra, "recon")
+            walls.append(dt)
+            calls.append(launches)
             with open(os.path.join(res_dir, "recon_metrics.json")) as f:
                 summaries.append(json.load(f))
-            for line in r.stderr.strip().splitlines()[-3:]:
-                log("[recon]   " + line)
-            calls.append(json.loads(r.stderr.strip().splitlines()[-1].removeprefix(K1_CALLS)))
         first, resumed = summaries
         # the first run extracts both items through the kernels; the rerun extracts nothing
-        if (not (calls[0]["launches"]["f32"] and calls[0]["launches"]["bf16"])
-                or calls[0]["plain_calls"] or calls[1]["plain_calls"]):
-            raise RuntimeError(f"export_meshes: decoder kernel calls {calls}")
+        if not (calls[0]["folded_mlp_f32"] and calls[0]["folded_mlp_bf16"]):
+            raise RuntimeError(f"export_meshes: kernel launches {calls}")
         rows = {row["id"]: row for row in first["per_item"]}
         log(f"[recon] export_meshes --config deepfashion3d (latent 32, {RECON_POINTS} points, "
             f"512^3), two items: {walls[0]:.1f}s; --resume {walls[1]:.1f}s; rows "
@@ -1054,13 +1091,248 @@ def phase_recon(dev, enc_ref):
             raise RuntimeError("export_meshes --resume wrote another recon_metrics.json")
         out.update(cli_s=walls, cli_rows=first["per_item"])
 
-    for c in calls:  # the CLI's own launches, counted by its process's wrappers
-        for prec, n in c["launches"].items():
-            CHILD_LAUNCHES[f"folded_mlp_{prec}"] += n
-    counts = launch_counts()
+    counts = launch_counts()  # with the CLI's own, which run_cli added
     k2 = sum(n for name, n in counts.items() if name.startswith("qkv_attention"))
     if not (counts["folded_mlp_f32"] and counts["folded_mlp_bf16"]) or k2:
         raise RuntimeError(f"recon: launches {counts}; want K1 f32 and bf16, no K2")
+    return out
+
+
+# Text, sketch and image conditioning at the text2shape and pix3d presets
+# (latent 64): CLIP ViT-B/32 at its published widths with seeded weights.
+COND_PROMPTS = (
+    "a long dress with short sleeves",
+    "a pleated knee-length skirt",
+    "robe à manches courtes élégante, 一件蓝色的连衣裙",
+    "a very long caption about an intricate layered garment with many details " * 12,
+)
+COND_LATENT = 64
+# The card's CLIP embeddings against the port's CPU run on the same weights:
+# between the sound reading (4.53e-6) and TF32 turned on (2.00e-3), both read
+# on an NVIDIA H100 80GB HBM3 at 700 W.
+COND_CLIP_BAR = 1e-4
+COND_RES = 128  # the CLIs' resolution in phase condition
+
+
+def seeded_clip():
+    """CLIP ViT-B/32 with random weights from seed 7, on the CPU."""
+    from surfd_tpu_torch.models import Clip
+
+    return Clip().random_init_(torch.Generator().manual_seed(7))
+
+
+def text_mdm():
+    """The full-width text-conditioned MDM (context 512) with random weights
+    from seed 0, on the CPU."""
+    from surfd_tpu_torch.models import MDM
+
+    mdm = MDM(cond_mode="text", clip_dim=512)
+    mdm.Unet.random_init_(torch.Generator().manual_seed(0))
+    return mdm.eval()
+
+
+def condition_image():
+    """A 480 x 640 RGB image (a smooth gradient plus noise) and an ellipse
+    mask that reaches the right border, made with numpy."""
+    yy, xx = np.mgrid[:480, :640]
+    rng = np.random.default_rng(8)
+    img = np.stack([xx * 255 // 639, yy * 255 // 479, (xx + yy) % 256], -1)
+    img = np.clip(img + rng.integers(-20, 21, img.shape), 0, 255).astype(np.uint8)
+    mask = ((yy - 250) / 170.0) ** 2 + ((xx - 520) / 200.0) ** 2 <= 1.0
+    return img, mask
+
+
+def condition_reference():
+    """The port's CPU run of phase condition's CLIP and text MDM: the text
+    embeddings of COND_PROMPTS, the image embedding of condition_image(),
+    the text CFG DDIM latents from the first two prompts, and the wall times."""
+    from surfd_tpu_torch.cli.generate_image import image_context
+    from surfd_tpu_torch.models.clip import tokenize
+
+    cpu = torch.device("cpu")
+    clip = seeded_clip()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        text = clip.encode_text(torch.from_numpy(tokenize(COND_PROMPTS)))
+    image = image_context(*condition_image(), clip, cpu)
+    t_clip = time.perf_counter() - t0
+    lat, t_mdm = cfg_sample(text_mdm(), "ddim", cpu, L=COND_LATENT, context=text[:2])
+    return {"text": text, "image": image, "latents": lat, "clip_s": t_clip, "ddim_s": t_mdm}
+
+
+def write_planted_decoder(ae_dir: str) -> None:
+    """ae_dir/ae_decoder.npz at latent 64: the sheet fixture's decoder with
+    its latent projections folded into their biases at the fixture latent
+    (kernels zero), so the decoder draws the fixture's sheet whatever latent
+    the random denoiser samples; and args.json with its settings."""
+    os.makedirs(ae_dir)
+    out = {}
+    with np.load(FIXTURE) as z:
+        latent = np.asarray(z["latent"], np.float32)
+        for k in z.files:
+            if not k.startswith("dec/"):
+                continue
+            v = np.asarray(z[k], np.float32)
+            if k.endswith(("gamma/kernel", "beta/kernel")):
+                out[k[4:-6] + "bias"] = latent @ v + np.asarray(z[k[:-6] + "bias"], np.float32)
+                v = np.zeros((COND_LATENT, v.shape[1]), np.float32)
+            out.setdefault(k[4:], v)
+        settings = {"latent_size": COND_LATENT, "hidden_dim": int(z["hidden_dim"]),
+                    "num_hidden_layers": int(z["num_hidden_layers"]),
+                    "max_dist": round(float(z["max_dist"]), 6)}
+    np.savez(os.path.join(ae_dir, "ae_decoder.npz"), **out)
+    with open(os.path.join(ae_dir, "args.json"), "w") as f:
+        json.dump(settings, f)
+
+
+def sketch_image(seed: int) -> np.ndarray:
+    """Black strokes on a white 256 x 256 RGB canvas."""
+    img = np.full((256, 256, 3), 255, np.uint8)
+    rng = np.random.default_rng(seed)
+    for _ in range(12):
+        y, x = rng.integers(10, 240, 2)
+        img[y:y + 3, x:min(x + int(rng.integers(20, 120)), 256)] = 0
+    return img
+
+
+def phase_condition(dev, ref):
+    """Text, sketch and image conditioning at latent 64: (a) CLIP ViT-B/32
+    at its published widths (seeded) on prompts and on a masked image
+    through image_context, against the port's CPU run, with TF32 planted as
+    a fault, timed at B 1 and 16; (b) the full-width text MDM, CFG 2.5 at
+    B 2 over ddim50 from (a)'s context, against the CPU run (K2 exactly
+    800 launches); (c) generate_text, encode_contexts --mode sketch,
+    generate_sketch and generate_image in subprocesses at 128^3, with a
+    CLIP npz written by save_clip_params and a planted decoder.
+    `ref`: condition_reference()."""
+    import re
+
+    from PIL import Image
+
+    from surfd_tpu_torch.cli.generate_image import clip_input, image_context
+    from surfd_tpu_torch.cli._common import read_rgb
+    from surfd_tpu_torch.models.clip import get_tokenizer, tokenize
+    from surfd_tpu_torch.ops import attention_kernel as ak
+    from surfd_tpu_torch.utils import use_full_f32
+    from surfd_tpu_torch.utils.convert import save_clip_params
+
+    out = {}
+    clip = seeded_clip().to(dev)
+    tokens = torch.from_numpy(tokenize(COND_PROMPTS)).to(dev)
+    img, mask = condition_image()
+
+    def embed():
+        with torch.no_grad():
+            return clip.encode_text(tokens).cpu(), image_context(img, mask, clip, dev).cpu()
+
+    text, image = embed()
+    gaps = {"text": float((text - ref["text"]).abs().max()),
+            "image": float((image - ref["image"]).abs().max())}
+    scale = max(float(ref["text"].abs().max()), float(ref["image"].abs().max()))
+    n_tok = [len(get_tokenizer().encode(p)) + 2 for p in COND_PROMPTS]
+    log(f"[condition] CLIP ViT-B/32 (seeded), card vs CPU: text max abs {gaps['text']!r}, image "
+        f"max abs {gaps['image']!r} (bar {COND_CLIP_BAR:g}; embeddings up to {scale:.3f}); prompt "
+        f"lengths {n_tok} tokens (cut at 77); tokenizer unicode_ok {get_tokenizer().unicode_ok}")
+    if not max(gaps.values()) <= COND_CLIP_BAR:
+        raise RuntimeError(f"condition: CLIP card vs CPU {gaps} over the bar {COND_CLIP_BAR}")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:  # planted fault: TF32 for CLIP's matmuls and the patch convolution
+        f_text, f_image = embed()
+    finally:
+        use_full_f32()
+    f_gaps = {"text": float((f_text - ref["text"]).abs().max()),
+              "image": float((f_image - ref["image"]).abs().max())}
+    log(f"[condition] CLIP with TF32 on (planted fault): text max abs {f_gaps['text']!r}, image "
+        f"max abs {f_gaps['image']!r}")
+    if max(f_gaps.values()) <= COND_CLIP_BAR:
+        raise RuntimeError(f"condition: the CLIP bar passes TF32 (planted fault): {f_gaps}")
+    out.update(clip_gaps=gaps, clip_tf32_gaps=f_gaps)
+    x1 = torch.from_numpy(clip_input(img, mask)[None]).to(dev)
+    with torch.no_grad():
+        for B in (1, 16):
+            tok_b, img_b = tokens[torch.arange(B) % len(COND_PROMPTS)], x1.expand(B, -1, -1, -1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t_ms, i_ms = time_ms_turns([lambda: clip.encode_text(tok_b),
+                                        lambda: clip.encode_image(img_b)], reps=10)
+            peak = torch.cuda.max_memory_allocated()
+            out[f"clip_B{B}"] = {"text_ms": t_ms, "image_ms": i_ms, "peak_bytes": peak}
+            log(f"[condition] CLIP at B {B}: text tower {t_ms:.3f} ms, image tower {i_ms:.3f} ms, "
+                f"peak memory allocated {peak / 2**30:.3f} GiB")
+
+    mdm = text_mdm().to(dev)
+    n0 = sum(ak.qkv_attention.launches.values())
+    lat, dt = cfg_sample(mdm, "ddim", dev, L=COND_LATENT, context=text[:2].to(dev))
+    n = sum(ak.qkv_attention.launches.values()) - n0
+    err = float((lat.cpu() - ref["latents"]).abs().max())
+    log(f"[condition] text MDM (224 ch, latent {COND_LATENT}), CFG 2.5, B=2 (K2 at B 4), DDIM over "
+        f"{CFG_STEPS}: {dt:.2f}s, card vs CPU max abs {err!r} (bar 1e-3), K2 launches {n}, "
+        f"latent std {float(lat.std()):.3f}")
+    if n != 16 * 50 or not err <= 1e-3:
+        raise RuntimeError(f"condition: text DDIM K2 launches {n} (want 800), card vs CPU {err}")
+    out.update(ddim_s=dt, ddim_card_vs_cpu=err)
+    del mdm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        npz = os.path.join(tmp, "clip.npz")
+        save_clip_params(npz, clip.cpu())
+        clip.to(dev)
+        ae = os.path.join(tmp, "ae")
+        write_planted_decoder(ae)
+        paths = {"image": os.path.join(tmp, "image.png"), "mask": os.path.join(tmp, "mask.png")}
+        Image.fromarray(img).save(paths["image"])
+        Image.fromarray(mask.astype(np.uint8) * 255).save(paths["mask"])
+        for fid, seed in (("a01", 1), ("b02", 2)):
+            os.makedirs(os.path.join(tmp, "data", "train", "chair"), exist_ok=True)
+            np.savez(os.path.join(tmp, "data", "train", "chair", f"{fid}.npz"), x=np.zeros(1))
+            os.makedirs(os.path.join(tmp, "sketches", fid))
+            Image.fromarray(sketch_image(seed)).save(os.path.join(tmp, "sketches", fid, "sketch_0.png"))
+        log(f"[condition] CLI inputs written in {time.perf_counter() - t0:.1f}s (CLIP npz "
+            f"{os.path.getsize(npz) / 2**20:.0f} MiB)")
+        gen = ["--random-init", "--ae_dir", ae, "--clip_npz", npz, "--resolution", str(COND_RES),
+               "--sampler", "ddim", "--timestep_respacing", CFG_STEPS, "--guidance_param", "2.5",
+               "--num_samples", "1"]
+        sketch_png = os.path.join(tmp, "sketches", "a01", "sketch_0.png")
+        walls = {}
+        for module, extra, tag in (
+                ("generate_text", ["--text_prompt", COND_PROMPTS[0]], "text"),
+                ("generate_sketch", ["--sketch_path", sketch_png], "sketch"),
+                ("generate_image", ["--image_path", paths["image"], "--mask_path", paths["mask"]],
+                 "img")):
+            res = os.path.join(tmp, f"out_{tag}")
+            dt, lines, launches = run_cli(module, gen + extra + ["--output_dir", res], "condition")
+            faces = [int(m.group(1)) for m in map(re.compile(r"verts / (\d+) faces").search, lines)
+                     if m]
+            k2 = sum(n for name, n in launches.items() if name.startswith("qkv_attention"))
+            if (os.listdir(res) != [f"{tag}_0.obj"] or not faces or faces[0] <= 10_000
+                    or not launches["folded_mlp_f32"] or k2 != 800):
+                raise RuntimeError(f"{module}: wrote {os.listdir(res)}, faces {faces}, "
+                                   f"launches {launches}")
+            walls[module] = dt
+            log(f"[condition] {module} (latent {COND_LATENT}, {COND_RES}^3, ddim50 CFG 2.5): "
+                f"{dt:.1f}s, {faces[0]} faces, launches {json.dumps(launches)}")
+        dt, _, _ = run_cli("encode_contexts", [
+            "--data_root", os.path.join(tmp, "data"), "--image_root", os.path.join(tmp, "sketches"),
+            "--mode", "sketch", "--clip_npz", npz], "condition")
+        walls["encode_contexts"] = dt
+        ctx_dir = os.path.join(tmp, "data", "train", "chair")
+        with torch.no_grad():
+            for fid in ("a01", "b02"):
+                want = clip.encode_image(torch.from_numpy(clip_input(read_rgb(
+                    os.path.join(tmp, "sketches", fid, "sketch_0.png")))[None]).to(dev))[0].cpu()
+                got = torch.from_numpy(np.load(os.path.join(ctx_dir, f"{fid}.context.npy")))
+                gap = float((got - want).abs().max())
+                if not gap <= COND_CLIP_BAR:
+                    raise RuntimeError(f"encode_contexts: {fid} {gap} from the in-process encode")
+        log(f"[condition] encode_contexts --mode sketch, two items: {dt:.1f}s, .context.npy "
+            f"within {COND_CLIP_BAR:g} of this process's encode")
+        out["cli_s"] = walls
+    counts = launch_counts()
+    k2_64 = {f"qkv_attention_T{T}_c{c}": counts.get(f"qkv_attention_T{T}_c{c}", 0)
+             for T, c, B in K2_TIMED if B == 4}
+    if not (all(k2_64.values()) and counts["folded_mlp_f32"] and counts["folded_mlp_bf16"]):
+        raise RuntimeError(f"condition: launches {counts}; want K2 at latent 64, K1 f32 and bf16")
     return out
 
 
@@ -1126,21 +1398,13 @@ def phase_cli():
     for module, extra, objs in CLI_RUNS:
         with tempfile.TemporaryDirectory() as out:
             argv = ["--random-init", "--resolution", "128", "--output_dir", out] + extra
-            cmd = [sys.executable, "-m", f"surfd_tpu_torch.cli.{module}", *argv]
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-            dt = time.perf_counter() - t0
-            if r.returncode != 0:
-                raise RuntimeError(f"{module} failed ({r.returncode}):\n{r.stdout}\n"
-                                   f"{r.stderr[-4000:]}")
+            dt, _, _ = run_cli(module, argv, "cli")
             written = sorted(os.listdir(out))
             if written != objs:
-                raise RuntimeError(f"{module} wrote {written}, want {objs}:\n{r.stderr[-4000:]}")
+                raise RuntimeError(f"{module} wrote {written}, want {objs}")
             sizes = [os.path.getsize(os.path.join(out, f)) for f in objs]
             log(f"[cli] {module} {' '.join(extra)}: {dt:.1f}s, "
                 + ", ".join(f"{f} {n} bytes" for f, n in zip(objs, sizes)))
-            for line in r.stderr.strip().splitlines()[-3:]:
-                log("[cli]   " + line)
 
 
 def main() -> int:
@@ -1165,15 +1429,21 @@ def main() -> int:
     if "kernels" in phases:
         rows, k2_calls = phase_kernels(dev, hgmma)
     if "generate" in phases:  # the CPU reference, outside the counted paths
-        cfg_ref, t_ref = cfg_sample(category_mdm(), "ddim", torch.device("cpu"))
+        cpu = torch.device("cpu")
+        cfg_ref, t_ref = cfg_sample(category_mdm(), "ddim", cpu, action=category_actions(cpu))
         log(f"[generate] CPU reference DDIM run ({torch.get_num_threads()} threads): {t_ref:.2f}s")
     if "recon" in phases:  # the CPU reference of the encoder, outside the counted paths
         enc_ref = encoder_reference()
         log(f"[recon] CPU reference encoder run, B 1 x {RECON_POINTS} points "
             f"({torch.get_num_threads()} threads): {enc_ref[2]:.2f}s")
+    if "condition" in phases:  # the CPU reference of CLIP and the text MDM
+        cond_ref = condition_reference()
+        log(f"[condition] CPU reference ({torch.get_num_threads()} threads): CLIP "
+            f"{cond_ref['clip_s']:.2f}s, text DDIM {cond_ref['ddim_s']:.2f}s")
     paths = {"sample": lambda: phase_sample(dev), "extract": lambda: phase_extract(dev),
              "generate": lambda: phase_generate(dev, cfg_ref),
-             "recon": lambda: phase_recon(dev, enc_ref)}
+             "recon": lambda: phase_recon(dev, enc_ref),
+             "condition": lambda: phase_condition(dev, cond_ref)}
     by_path = {}
     for name in MAIN_PATH:
         if name not in phases:

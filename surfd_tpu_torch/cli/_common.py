@@ -17,7 +17,19 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
+
+CLIP_DIM = 512  # the width of a CLIP embedding, the context modes' conditioning
+# Prefix of a CLI's last stderr line: its process's kernel launches and
+# plain-version calls (ops.kernel_calls), as JSON.
+KERNEL_CALLS = "kernel calls: "
+
+
+def print_kernel_calls() -> None:
+    from ..ops import kernel_calls
+
+    print(KERNEL_CALLS + json.dumps(kernel_calls()), file=sys.stderr)
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
@@ -62,6 +74,48 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                     "another's device passes (pipelines/batch.py)")
     ap.add_argument("--device", default="cuda", help="torch device (cuda by default)")
     return ap
+
+
+def context_parser(desc: str) -> argparse.ArgumentParser:
+    """base_parser plus the context CLIs' weights flags."""
+    ap = base_parser(desc)
+    ap.add_argument("--clip_npz", default="",
+                    help="CLIP weights in the JAX package's npz layout (utils/convert.py)")
+    ap.add_argument("--context_npy", default="", help="a precomputed 512-d context")
+    return ap
+
+
+def cli_context(args, encode) -> torch.Tensor:
+    """The (num_samples, 512) f32 context of a context CLI on its device:
+    --context_npy if given, else `encode(device)` (a (1, 512) tensor) with
+    --clip_npz, else zeros with a warning."""
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if args.context_npy:
+        ctx = torch.from_numpy(np.load(args.context_npy).reshape(1, -1))
+    elif args.clip_npz:
+        ctx = encode(device)
+    else:
+        print("WARNING: no CLIP weights/context; zero context", file=sys.stderr)
+        ctx = torch.zeros(1, CLIP_DIM)
+    return ctx.to(device, torch.float32).repeat_interleave(args.num_samples, dim=0)
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 of an image file (PIL)."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
+
+
+def read_mask(path: str) -> np.ndarray:
+    """Bool (H, W) mask of an image file: grey level above 127 (PIL)."""
+    from PIL import Image
+
+    with Image.open(path) as m:
+        return np.asarray(m.convert("L")) > 127
 
 
 def parse_surface_bias(s) -> float | str:
@@ -147,7 +201,8 @@ def load_denoiser(args, cond_mode: str, device):
     from ..utils.convert import pad_null_class_row
 
     num_actions = args.num_actions or 9
-    mdm = MDM(cond_mode=cond_mode, model_channels=args.model_channels, num_actions=num_actions)
+    mdm = MDM(cond_mode=cond_mode, clip_dim=CLIP_DIM, model_channels=args.model_channels,
+              num_actions=num_actions)
     if args.random_init or not args.model_path:
         if not args.random_init:
             print("WARNING: no --model_path given; using random weights", file=sys.stderr)
@@ -178,8 +233,10 @@ def load_decoder(args, device):
 def run_generation(args, cond_mode: str, context=None, action=None, tag: str = "sample",
                    argv=None):
     """Sample latents and extract one mesh per sample through the batch
-    generator; returns the OBJ paths. `argv` is the command line the args
-    came from (flags passed there win over the run dirs' args.json)."""
+    generator; returns the OBJ paths. `context`: the context modes' (num_samples,
+    512) embeddings on the run's device; CFG pairs them with zeros.
+    `argv` is the command line the args came from (flags passed there win
+    over the run dirs' args.json). The last stderr line is KERNEL_CALLS."""
     from ..diffusion import VarType
     from ..geometry import write_obj
     from ..models import make_cfg_model_fn
@@ -197,6 +254,9 @@ def run_generation(args, cond_mode: str, context=None, action=None, tag: str = "
     mdm = load_denoiser(args, cond_mode, device)
     if action is not None and not bool(((action >= 0) & (action < mdm.num_actions)).all()):
         raise ValueError(f"category ids must be in [0, {mdm.num_actions})")
+    if context is not None and tuple(context.shape) != (args.num_samples, CLIP_DIM):
+        raise ValueError(f"context must be ({args.num_samples}, {CLIP_DIM}), "
+                         f"got {tuple(context.shape)}")
     decoder = load_decoder(args, device)
     model_fn = make_cfg_model_fn(mdm, args.guidance_param, context=context, action=action)
     var_type = VarType.FIXED_SMALL if args.sigma_small else VarType.FIXED_LARGE
@@ -235,4 +295,5 @@ def run_generation(args, cond_mode: str, context=None, action=None, tag: str = "
             file=sys.stderr,
         )
         out_paths.append(path)
+    print_kernel_calls()
     return out_paths

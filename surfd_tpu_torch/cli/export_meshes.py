@@ -26,9 +26,7 @@ import time
 import numpy as np
 import torch
 
-# Prefix of the last stderr line: the folded decoder's kernel launches by
-# precision and its plain-version calls in this process, as JSON.
-K1_CALLS = "decoder kernel calls: "
+from ._common import print_kernel_calls
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -211,11 +209,7 @@ def main(argv=None):
     if summary["mean_chamfer"] is not None:
         print(f"mean chamfer: {summary['mean_chamfer']:.6f}  "
               f"mean f@0.01: {summary['mean_f_score@0.01']:.3f}", file=sys.stderr)
-    from ..ops import decoder_kernel as dk
-
-    print(K1_CALLS + json.dumps({
-        "launches": dict(dk.folded_udf.launches),
-        "plain_calls": dk.folded_udf_ref.calls + dk.folded_udf_mixed_ref.calls}), file=sys.stderr)
+    print_kernel_calls()  # the last stderr line
     return summary
 
 

@@ -1,3 +1,4 @@
+from .clip import Clip
 from .decoder import CbnDecoder, coords_encode, udf_from_logits
 from .dgcnn import Dgcnn, gather_graph_feature, knn_indices
 from .layers import GroupNorm32, timestep_embedding
@@ -5,7 +6,7 @@ from .mdm import MDM, make_cfg_model_fn
 from .unet1d import UNet1D
 
 __all__ = [
-    "CbnDecoder", "coords_encode", "udf_from_logits", "Dgcnn", "gather_graph_feature",
+    "Clip", "CbnDecoder", "coords_encode", "udf_from_logits", "Dgcnn", "gather_graph_feature",
     "knn_indices", "GroupNorm32",
     "timestep_embedding", "MDM", "make_cfg_model_fn", "UNet1D",
 ]

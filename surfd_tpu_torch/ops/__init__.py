@@ -17,5 +17,15 @@ from .decoder_kernel import (
 
 __all__ = [
     "qkv_attention", "qkv_attention_ref", "FoldedDecoder", "fold_decoder",
-    "folded_udf", "folded_udf_mixed_ref", "folded_udf_ref", "posenc_f32",
+    "folded_udf", "folded_udf_mixed_ref", "folded_udf_ref", "posenc_f32", "kernel_calls",
 ]
+
+
+def kernel_calls() -> dict:
+    """This process's kernel launches, K1 by precision and K2 by (T, c), under
+    the row names of chip_smoke.py's kernels line, and its calls of their
+    plain versions."""
+    launches = {f"folded_mlp_{p}": n for p, n in folded_udf.launches.items()}
+    launches.update({f"qkv_attention_T{T}_c{c}": n for (T, c), n in qkv_attention.launches.items()})
+    plain = folded_udf_ref.calls + folded_udf_mixed_ref.calls + qkv_attention_ref.calls
+    return {"launches": launches, "plain_calls": plain}

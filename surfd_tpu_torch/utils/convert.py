@@ -12,12 +12,15 @@ The decoder comes out under `decoder.*`, the denoiser under `Unet.*`, the
 encoder unprefixed (`conv_1..5`, `bn_1..5`). Unlike
 the upstream export, the category model keeps its CFG null-class row as the
 last row of `label_emb` (upstream checkpoints lack it; `pad_null_class_row`
-restores it as zeros).
+restores it as zeros). CLIP comes out in OpenAI's layout (`clip_state_from_flax`,
+`load_clip`), whose attention packs q, k and v as one `in_proj_weight` (3W, W).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import hashlib
+import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -195,7 +198,6 @@ def load_flax_npz(path: str) -> dict:
     return nest_flat_keys(flat)
 
 
-
 def load_sheet_fixture(path: str) -> dict:
     """The shipped trained sheet decoder (`bench_sheet_decoder.npz`).
 
@@ -214,3 +216,172 @@ def load_sheet_fixture(path: str) -> dict:
         }
     out["state_dict"] = decoder_state_from_flax(nest_flat_keys(flat, "dec/"))
     return out
+
+
+# ---------------------------------------------------------------------------
+# CLIP: the JAX package's Flax parameters and npz, OpenAI `.pt` checkpoints
+# ---------------------------------------------------------------------------
+
+# Zoo names → the checkpoint file in the cache directory, with the SHA-256
+# that OpenAI publishes for it. Nothing is downloaded.
+CLIP_ZOO = {"ViT-B/32": ("ViT-B-32.pt",
+                         "40d365715913c9da98579312b702a82c18be219cc2a73407c4526f58eba950af")}
+# Keys of OpenAI's TorchScript state dicts that are settings, not weights.
+_CLIP_META_KEYS = ("input_resolution", "context_length", "vocab_size")
+_TOWERS = (("visual", "visual.transformer.resblocks"), ("text", "transformer.resblocks"))
+
+
+def _clip_block_from_flax(sd, prefix, p):
+    width = np.asarray(p["ln_1"]["scale"]).shape[0]
+    sd[f"{prefix}.ln_1.weight"], sd[f"{prefix}.ln_1.bias"] = _t(p["ln_1"]["scale"]), _t(p["ln_1"]["bias"])
+    sd[f"{prefix}.ln_2.weight"], sd[f"{prefix}.ln_2.bias"] = _t(p["ln_2"]["scale"]), _t(p["ln_2"]["bias"])
+    attn = p["attn"]
+    # Flax MHA kernels (W, heads, head_dim) → rows of the packed (3W, W) weight
+    sd[f"{prefix}.attn.in_proj_weight"] = _t(np.concatenate(
+        [np.asarray(attn[n]["kernel"]).reshape(width, width).T for n in ("query", "key", "value")]))
+    sd[f"{prefix}.attn.in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(attn[n]["bias"]).reshape(width) for n in ("query", "key", "value")]))
+    sd[f"{prefix}.attn.out_proj.weight"] = _t(np.asarray(attn["out"]["kernel"]).reshape(width, width).T)
+    sd[f"{prefix}.attn.out_proj.bias"] = _t(attn["out"]["bias"])
+    _dense(sd, f"{prefix}.mlp.c_fc", p["mlp_fc"])
+    _dense(sd, f"{prefix}.mlp.c_proj", p["mlp_proj"])
+
+
+def clip_state_from_flax(variables) -> StateDict:
+    """The JAX package's CLIP variables ({'params': {'visual', 'text'}}) →
+    the port's state dict in OpenAI's layout (the inverse of
+    `convert_torch_clip_state_dict`); `logit_scale`, which the JAX towers do
+    not hold, at OpenAI's initial log(1 / 0.07)."""
+    params = variables["params"]
+    vis, txt = params["visual"], params["text"]
+    sd: StateDict = {
+        # Flax conv (kh, kw, in, out) → torch (out, in, kh, kw)
+        "visual.conv1.weight": _t(np.asarray(vis["conv1"]["kernel"]).transpose(3, 2, 0, 1)),
+        "visual.class_embedding": _t(vis["class_embedding"]),
+        "visual.positional_embedding": _t(vis["positional_embedding"]),
+        "visual.ln_pre.weight": _t(vis["ln_pre"]["scale"]),
+        "visual.ln_pre.bias": _t(vis["ln_pre"]["bias"]),
+        "visual.ln_post.weight": _t(vis["ln_post"]["scale"]),
+        "visual.ln_post.bias": _t(vis["ln_post"]["bias"]),
+        "visual.proj": _t(vis["proj"]),
+        "token_embedding.weight": _t(txt["token_embedding"]["embedding"]),
+        "positional_embedding": _t(txt["positional_embedding"]),
+        "ln_final.weight": _t(txt["ln_final"]["scale"]),
+        "ln_final.bias": _t(txt["ln_final"]["bias"]),
+        "text_projection": _t(txt["text_projection"]),
+        "logit_scale": torch.tensor(np.log(1 / 0.07), dtype=torch.float32),
+    }
+    for tower, prefix in _TOWERS:
+        blocks = params[tower]
+        for i in range(sum(1 for k in blocks if k.startswith("block_"))):
+            _clip_block_from_flax(sd, f"{prefix}.{i}", blocks[f"block_{i}"])
+    return sd
+
+
+def clip_flat_from_state(state) -> dict:
+    """The port's CLIP state dict → the JAX package's flat-key npz layout
+    (`params/visual/...`, `params/text/...`: `save_params_npz` of the
+    variables `convert_torch_clip_state_dict` makes), numpy f32."""
+    g = {k: v.detach().float().cpu().numpy() for k, v in state.items()}
+    out = {
+        "params/visual/conv1/kernel": g["visual.conv1.weight"].transpose(2, 3, 1, 0),
+        "params/visual/class_embedding": g["visual.class_embedding"],
+        "params/visual/positional_embedding": g["visual.positional_embedding"],
+        "params/visual/ln_pre/scale": g["visual.ln_pre.weight"],
+        "params/visual/ln_pre/bias": g["visual.ln_pre.bias"],
+        "params/visual/ln_post/scale": g["visual.ln_post.weight"],
+        "params/visual/ln_post/bias": g["visual.ln_post.bias"],
+        "params/visual/proj": g["visual.proj"],
+        "params/text/token_embedding/embedding": g["token_embedding.weight"],
+        "params/text/positional_embedding": g["positional_embedding"],
+        "params/text/ln_final/scale": g["ln_final.weight"],
+        "params/text/ln_final/bias": g["ln_final.bias"],
+        "params/text/text_projection": g["text_projection"],
+    }
+    for tower, prefix in _TOWERS:
+        i = 0
+        while f"{prefix}.{i}.ln_1.weight" in g:
+            src, dst = f"{prefix}.{i}", f"params/{tower}/block_{i}"
+            width = g[f"{src}.ln_1.weight"].shape[0]
+            heads = max(width // 64, 1)
+            for ln in ("ln_1", "ln_2"):
+                out[f"{dst}/{ln}/scale"] = g[f"{src}.{ln}.weight"]
+                out[f"{dst}/{ln}/bias"] = g[f"{src}.{ln}.bias"]
+            ws = np.split(g[f"{src}.attn.in_proj_weight"], 3)
+            bs = np.split(g[f"{src}.attn.in_proj_bias"], 3)
+            for name, w, b in zip(("query", "key", "value"), ws, bs):
+                out[f"{dst}/attn/{name}/kernel"] = w.T.reshape(width, heads, width // heads)
+                out[f"{dst}/attn/{name}/bias"] = b.reshape(heads, width // heads)
+            out[f"{dst}/attn/out/kernel"] = g[f"{src}.attn.out_proj.weight"].T.reshape(
+                heads, width // heads, width)
+            out[f"{dst}/attn/out/bias"] = g[f"{src}.attn.out_proj.bias"]
+            for fl, tl in (("mlp_fc", "c_fc"), ("mlp_proj", "c_proj")):
+                out[f"{dst}/{fl}/kernel"] = g[f"{src}.mlp.{tl}.weight"].T
+                out[f"{dst}/{fl}/bias"] = g[f"{src}.mlp.{tl}.bias"]
+            i += 1
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in out.items()}
+
+
+def _clip_from_state(sd: StateDict):
+    from ..models.clip import Clip, clip_config_from_state
+
+    model = Clip(**clip_config_from_state(sd))
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def load_clip_params(npz_path: str):
+    """A Clip module (eval, CPU) from the JAX package's CLIP npz
+    (`save_clip_params` of either package); the configuration is read from
+    the shapes."""
+    return _clip_from_state(clip_state_from_flax(load_flax_npz(npz_path)))
+
+
+def save_clip_params(npz_path: str, model) -> None:
+    """A Clip module's weights as the JAX package's flat-key npz, which its
+    `load_clip_params` reads."""
+    np.savez(npz_path, **clip_flat_from_state(model.state_dict()))
+
+
+def _clip_cache_dir() -> str:
+    """Where the JAX package caches zoo checkpoints: $SURFD_CLIP_CACHE, else
+    ~/.cache/surfd_tpu/clip."""
+    return os.environ.get("SURFD_CLIP_CACHE",
+                          os.path.join(os.path.expanduser("~"), ".cache", "surfd_tpu", "clip"))
+
+
+def _read_pt(path: str) -> StateDict:
+    """An OpenAI `.pt` (TorchScript, or a plain state dict) as an f32 state
+    dict without its setting keys."""
+    try:
+        sd = torch.jit.load(path, map_location="cpu").state_dict()
+    except RuntimeError:  # not a TorchScript archive
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.float() for k, v in sd.items() if k not in _CLIP_META_KEYS}
+
+
+def load_clip(name_or_path: str = "ViT-B/32", cache_dir: Optional[str] = None):
+    """A Clip module (eval, CPU, f32) from a `.npz` in the JAX package's
+    layout, an OpenAI `.pt`, or a zoo name whose checkpoint is already in the
+    cache directory (checked against its published SHA-256). Never downloads:
+    a missing checkpoint raises with where to put it."""
+    if name_or_path.endswith(".npz"):
+        return load_clip_params(name_or_path)
+    if name_or_path.endswith(".pt"):
+        return _clip_from_state(_read_pt(name_or_path))
+    if name_or_path not in CLIP_ZOO:
+        raise KeyError(f"unknown CLIP model {name_or_path!r}; available: {list(CLIP_ZOO)}")
+    fname, sha = CLIP_ZOO[name_or_path]
+    path = os.path.join(cache_dir or _clip_cache_dir(), fname)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{name_or_path}: no checkpoint at {path}. This package does not download; "
+            f"place OpenAI's {fname} there (or set SURFD_CLIP_CACHE), or pass a .pt or "
+            ".npz path to load_clip")
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    if h.hexdigest() != sha:
+        raise RuntimeError(f"{path}: SHA-256 {h.hexdigest()} is not the published {sha}")
+    return _clip_from_state(_read_pt(path))

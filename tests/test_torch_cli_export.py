@@ -30,7 +30,7 @@ from surfd_tpu.geometry.mesh_io import write_obj as jax_write_obj
 from surfd_tpu.models.dgcnn import Dgcnn as JaxDgcnn
 from surfd_tpu.utils.checkpoint import save_params_npz
 from surfd_tpu.utils.config import load_preset as jax_load_preset
-from surfd_tpu_torch.cli import export_meshes
+from surfd_tpu_torch.cli import _common, export_meshes
 from surfd_tpu_torch.data import UdfDataset
 from surfd_tpu_torch.geometry import Mesh, mesh_io, write_obj
 from surfd_tpu_torch.utils.config import apply_preset_defaults, load_preset
@@ -136,8 +136,9 @@ def test_cli_resume_reproduces_summary(runs, corpus, capsys):
     assert again == got
     # the last stderr line reports the decoder kernel's launches: none on the CPU
     last = capsys.readouterr().err.strip().splitlines()[-1]
-    assert last.startswith(export_meshes.K1_CALLS)
-    assert json.loads(last.removeprefix(export_meshes.K1_CALLS))["launches"] == {"f32": 0, "bf16": 0}
+    assert last.startswith(_common.KERNEL_CALLS)
+    assert json.loads(last.removeprefix(_common.KERNEL_CALLS))["launches"] == {
+        "folded_mlp_f32": 0, "folded_mlp_bf16": 0}
     assert json.loads((out / "recon_metrics.json").read_text()) == got
     # --resume with --limit 1 keeps the first row only
     assert export_meshes.main([*_argv(corpus, out), "--device", "cpu", "--resume",

@@ -149,8 +149,9 @@ def test_k1_f32_planted_wrong_fragment_order_fails(cuda, plant):
     assert float((dk.launch_k1(bad, pts, "f32") - want).abs().max()) > 10 * K1_F32_BARS["max"]
 
 
-# the MDM's (T, c) at latent 32 and 64, then the kernel's largest shape and
-# shapes off the 16-byte staging path (c or T not a multiple of 4, one token)
+# the MDM's (T, c) at latent 32 (32/28, 16/56, 8/112, 4/112) and 64 (64/28,
+# 32/56, 16/112, 8/112), then the kernel's largest shape and shapes off the
+# 16-byte staging path (c or T not a multiple of 4, one token)
 K2_SHAPES = [(32, 28), (16, 56), (8, 112), (4, 112), (64, 28), (32, 56), (16, 112),
              (64, 128), (5, 27), (1, 4)]
 
@@ -207,6 +208,28 @@ def test_mdm_on_card_matches_cpu(cuda):
     with torch.no_grad():
         want = mdm(x, t)
         got = mdm.to(cuda)(x.to(cuda), t.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_text_mdm_at_latent_64_on_card_matches_cpu(cuda):
+    """The full-width text MDM at latent 64, one CFG pass (B 4, half the
+    contexts zero): K2 at the four latent-64 shapes, 5 / 5 / 5 / 1 launches,
+    and the output against the MDM's CPU run."""
+    mdm = MDM(cond_mode="text", clip_dim=512)
+    mdm.Unet.random_init_(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(4, 64, 1)).astype(np.float32))
+    ctx = torch.from_numpy((0.4 * rng.normal(size=(4, 512))).astype(np.float32))
+    ctx[2:] = 0
+    t = torch.tensor([3, 700, 3, 700])
+    with torch.no_grad():
+        want = mdm(x, t, context=ctx)
+        before = dict(ak.qkv_attention.launches)
+        got = mdm.to(cuda)(x.to(cuda), t.to(cuda), context=ctx.to(cuda)).cpu()
+    launched = {k: n - before.get(k, 0) for k, n in ak.qkv_attention.launches.items()
+                if n != before.get(k, 0)}
+    assert launched == {(64, 28): 5, (32, 56): 5, (16, 112): 5, (8, 112): 1}
     assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
 
 
