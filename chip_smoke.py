@@ -16,7 +16,10 @@ Phases, each fatal on failure:
      also against folded_udf_mixed_tc, the same math on cuBLAS's tensor
      cores; K2 in
      both layouts it takes (token-major, and the channel-first view the
-     attention block hands it, which is the one timed);
+     attention block hands it, which is the one timed); K2-bwd at the
+     training shapes (latent 32 and 64, B 1, 2 and 4) in every pairing of
+     qkv's and dO's layouts against qkv_attention_bwd_ref, with two planted
+     input faults its bar must reject, timed at B 2 beside SDPA's backward;
   3. sampling: 1000 DDPM steps of the full-width MDM (random weights from a
      seed), B = 2 — K2 must launch 16 x 1000 times;
   4. extraction: the shipped trained sheet decoder at 256^3 with
@@ -52,13 +55,26 @@ Phases, each fatal on failure:
      written by save_clip_params, the sheet fixture's decoder planted to
      ignore the latent), each reporting its kernel launches and no
      plain-version call;
-  8. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
+  8. diffusion training, the full-width category MDM at B 2, latent 32: 3
+     train steps on the card against the port's own CPU run (same init,
+     batches, t, weights, noise and conditioning-dropout masks, EMA 0.9):
+     each step's loss, step 1's gradients, and the params and EMA after
+     the steps within TRAIN_BARS; four planted faults (the attention output
+     detached, TF32 on, the optimizer step skipped, the EMA not updated)
+     must each fail their bar; 50
+     steps timed (ms a step, peak memory, device busy share) and 20 of the
+     latent-64 sketch MDM, each with exactly 16 K2 and 16 K2-bwd launches a
+     step; train_diffusion --cond_mode category --precompute_latents in a
+     subprocess on phase recon's two-item corpus, 20 steps, then --resume
+     to 30, then generate_cat --model_path <save_dir> (ddim50, 128^3, the
+     planted sheet decoder) reading the run;
+  9. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
      turns with SDPA's;
-  9. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
+  10. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
      (DDIM, guidance 2.5, two extractions at a time) and generate_uncond
      (PLMS, watertight).
 
-Phases 3-7 are the main path: each runs with the launch counts set to 0
+Phases 3-8 are the main path: each runs with the launch counts set to 0
 just before it and read just after, and no plain version may run in them.
 
 Not in the default run: `--phases build,profile` (where the time goes, and
@@ -77,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -91,9 +108,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "surfd_tpu", "assets", "bench_sheet_decoder.npz")
-PHASES = ("build", "kernels", "sample", "extract", "generate", "recon", "condition", "host",
-          "cli")  # default
-MAIN_PATH = ("sample", "extract", "generate", "recon", "condition")  # counted: launches, no plain version
+PHASES = ("build", "kernels", "sample", "extract", "generate", "recon", "condition", "train",
+          "host", "cli")  # default
+# counted: launches, no plain version
+MAIN_PATH = ("sample", "extract", "generate", "recon", "condition", "train")
 EXTRA_PHASES = ("profile", "bars", "parity")
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type.
@@ -123,6 +141,16 @@ K2_TPU = "surfd_tpu/ops/attention_kernel.py:32 (_attn_kernel, commit a9ab519^)"
 # T 8, c 112 is at both latents, and its B 4 reading goes in its row as "B4".
 K2_TIMED = ((32, 28, 2), (16, 56, 2), (8, 112, 2), (4, 112, 2),
             (64, 28, 4), (32, 56, 4), (16, 112, 4), (8, 112, 4))
+K2_BWD_SRC = "surfd_tpu_torch/ops/csrc/qkv_attention_bwd.cu"
+K2_BWD_TPU = (K2_TPU + "; its gradient, which the JAX package took by jax.grad of "
+              "surfd_tpu/models/layers.py:67 (qkv_attention)")
+# K2-bwd's (T, c) at the training batch, B 2, 224 channels, 8 heads: latent 32
+# (the category MDM of phase train) and latent 64 (the text2shape / pix3d
+# presets); T 8, c 112 is at both.
+K2_BWD_TIMED = ((32, 28), (16, 56), (8, 112), (4, 112), (64, 28), (32, 56), (16, 112))
+# K2-bwd against qkv_attention_bwd_ref: max abs error over max(1, max |ref|).
+# PERF.md gives the readings, sound and with planted faults, it was set from.
+K2_BWD_BAR = 2e-5
 # The JAX package's face count for the sheet fixture at 256^3, auto bias
 # (surfd_tpu on the CPU, max_batch 2^16; ROADMAP queue 1 item 1). The card
 # has no JAX, so the number is kept here.
@@ -356,7 +384,7 @@ def phase_kernels(dev, hgmma=None):
                 [kern, lambda: ak.qkv_attention(qkv, heads), sdpa], inner=200)
             plain_ms = time_ms(lambda: ak.qkv_attention_ref(qkv_cf, heads), inner=50)
             name = f"qkv_attention_T{T}_c{c}"
-            k2_calls[name, B] = (kern, sdpa)
+            k2_calls[name, B] = (kern, sdpa, "qkv_attention_kernel")
             flops = B * heads * (4.0 * T * T * c + 5.0 * T * T)
             b_ms, b_by = bound(4.0 * B * T * 4 * heads * c, flops, "f32")
             reading = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -373,7 +401,91 @@ def phase_kernels(dev, hgmma=None):
                 f"channel-first {errs['channel-first']:.3g}; kernel {ms * 1e3:.2f} us "
                 f"(token-major {tok_ms * 1e3:.2f} us) plain {plain_ms * 1e3:.2f} us "
                 f"SDPA {lib_ms * 1e3:.2f} us bound {b_ms * 1e3:.3f} us ({b_by})")
+    rows += kernels_bwd(dev, k2_calls)
     return rows, k2_calls
+
+
+def _bwd_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def kernels_bwd(dev, k2_calls) -> list:
+    """K2-bwd against qkv_attention_bwd_ref at the training shapes, B 1, 2
+    and 4, every pairing of qkv's and dO's layouts; at B 2 timed in the main
+    path's layouts (both channel-first) beside the plain version and SDPA's
+    backward on the same (B, H, T, c); two planted input faults the bar must
+    reject. Adds each B 2 row's callables to k2_calls for the device times."""
+    from surfd_tpu_torch.ops import attention_kernel as ak
+
+    heads, rows = 8, []
+    rng = np.random.default_rng(2)
+
+    def channel_first(x):
+        return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+    for T, c in K2_BWD_TIMED:
+        for B in (1, 2, 4):
+            qkv = torch.from_numpy(rng.normal(size=(B, T, 3 * heads * c)).astype(np.float32)).to(dev)
+            g = torch.from_numpy(rng.normal(size=(B, T, heads * c)).astype(np.float32)).to(dev)
+            errs = {}
+            for lq, x in (("token", qkv), ("channel", channel_first(qkv))):
+                for lg, dy in (("token", g), ("channel", channel_first(g))):
+                    got = ak.qkv_attention_bwd(x, dy, heads)
+                    want = ak.qkv_attention_bwd_ref(x, dy, heads)
+                    torch.cuda.synchronize()
+                    if got.stride() != x.stride():
+                        raise RuntimeError(f"K2-bwd T={T} c={c} B={B}: strides {got.stride()}, "
+                                           f"qkv {x.stride()}")
+                    errs[lq, lg] = _bwd_err(got, want)
+            err = max(errs.values())
+            if not err <= K2_BWD_BAR:
+                raise RuntimeError(f"K2-bwd T={T} c={c} B={B}: error {errs} over {K2_BWD_BAR}")
+            if B != 2:
+                continue
+            x, dy = channel_first(qkv), channel_first(g)
+            want = ak.qkv_attention_bwd_ref(x, dy, heads)
+            faults = {}
+            bumped = dy.clone()
+            bumped[0, T // 2, 5] += 0.01
+            faults["one dO value +0.01"] = _bwd_err(ak.qkv_attention_bwd(x, bumped, heads), want)
+            rounded = x.clone()
+            rounded[0, :, c:2 * c] = rounded[0, :, c:2 * c].bfloat16().float()
+            faults["head 0's k rounded to bf16"] = _bwd_err(
+                ak.qkv_attention_bwd(rounded, dy, heads), want)
+            passed = [f for f, e in faults.items() if e <= K2_BWD_BAR]
+            if passed:
+                raise RuntimeError(f"K2-bwd T={T} c={c}: the bar passes planted faults {passed}")
+            q, k, v = (t.permute(0, 2, 1, 3).detach().requires_grad_(True) for t in
+                       qkv.reshape(B, T, heads, 3 * c).split(c, dim=-1))
+            sdpa_out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+            g4 = g.reshape(B, T, heads, c).permute(0, 2, 1, 3)
+            sdpa_bwd = lambda o=sdpa_out, q=q, k=k, v=v, g4=g4: torch.autograd.grad(  # noqa: E731
+                o, (q, k, v), g4, retain_graph=True)
+            kern = lambda x=x, dy=dy: ak.qkv_attention_bwd(x, dy, heads)  # noqa: E731
+            ms, lib_ms = time_ms_turns([kern, sdpa_bwd], inner=200)
+            plain_ms = time_ms(lambda: ak.qkv_attention_bwd_ref(x, dy, heads), inner=50)
+            name = f"qkv_attention_bwd_T{T}_c{c}"
+            k2_calls[name, B] = (kern, sdpa_bwd, "qkv_attention_bwd")
+            # read qkv and dO once, write dqkv once; per (b, h): QKᵀ, dP, dV, dQ, dK
+            # (2·T²·c each) and the softmax, D and dS (~8·T²)
+            nbytes = 4.0 * B * T * heads * c * 7
+            flops = B * heads * (10.0 * T * T * c + 8.0 * T * T)
+            b_ms, b_by = bound(nbytes, flops, "f32")
+            rows.append({
+                "name": name, "route": "cuda", "source": K2_BWD_SRC, "replaces": K2_BWD_TPU,
+                "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "shape": f"B={B} T={T} H={heads} c={c} channel-first qkv and dO",
+                "err_by_layout": {f"{a}/{b}": e for (a, b), e in errs.items()},
+                "planted_faults": faults,
+            })
+            log(f"[kernels] K2-bwd T={T} c={c} B={B}: err (qkv/dO layouts) "
+                + ", ".join(f"{a}/{b} {e:.3g}" for (a, b), e in errs.items())
+                + f" (bar {K2_BWD_BAR:g}); planted faults "
+                + ", ".join(f"{f} {e:.3g}" for f, e in faults.items())
+                + f"; kernel {ms * 1e3:.2f} us plain {plain_ms * 1e3:.2f} us SDPA backward "
+                f"{lib_ms * 1e3:.2f} us bound {b_ms * 1e3:.3f} us ({b_by})")
+    return rows
 
 
 def k2_device_times(rows, k2_calls):
@@ -381,13 +493,13 @@ def k2_device_times(rows, k2_calls):
     K2 rows. Run after the main path, so that no profiler session comes
     before its timings."""
     by_name = {row["name"]: row for row in rows}
-    for (name, B), (kern, sdpa) in k2_calls.items():
+    for (name, B), (kern, sdpa, kernel_name) in k2_calls.items():
         row = by_name[name]
         reading = row.get(f"B{B}", row)
-        reading["device_us"], n_k2 = device_us_per_call(kern, "qkv_attention")
-        # every kernel SDPA launches
+        reading["device_us"], n_k2 = device_us_per_call(kern, kernel_name)
+        # every kernel SDPA (or its backward) launches
         reading["library_device_us"], n_sdpa = device_us_per_call(sdpa, "")
-        log(f"[kernels] {name} B {B} device-only: K2 {reading['device_us']:.2f} us, "
+        log(f"[kernels] {name} B {B} device-only: kernel {reading['device_us']:.2f} us, "
             f"SDPA {reading['library_device_us']:.2f} us (event-timed {reading['ms'] * 1e3:.2f} / "
             f"{reading['library_ms'] * 1e3:.2f} us; launches recorded {n_k2} / {n_sdpa} of 200)")
 
@@ -490,9 +602,11 @@ def reset_counts():
     CHILD_LAUNCHES.clear()
     dk.folded_udf.launches.update(f32=0, bf16=0)
     ak.qkv_attention.launches.clear()
+    ak.qkv_attention_bwd.launches.clear()
     dk.folded_udf_ref.calls = 0
     dk.folded_udf_mixed_ref.calls = 0
     ak.qkv_attention_ref.calls = 0
+    ak.qkv_attention_bwd_ref.calls = 0
 
 
 def launch_counts() -> dict:
@@ -570,7 +684,7 @@ def _profiled(label, fn, steps=None):
     torch.profiler: device busy share = summed kernel time / that wall time
     (the profiler's own host overhead stays out of the wall time). With
     `steps`, also the device kernels launched per step (copies and memsets
-    apart)."""
+    apart). Returns (wall µs, kernel µs or None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -582,12 +696,15 @@ def _profiled(label, fn, steps=None):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # device-side ranges of user annotations (the optimizer's step) are not
+    # kernels and overlap the kernels they enclose
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
     busy_us = sum(_device_us(e) for e in kernels)
     if busy_us == 0:
         log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device time not measured")
-        return
+        return wall_us, None
     log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, kernels {busy_us / 1e3:.1f} ms, "
         f"device busy {100 * busy_us / wall_us:.1f}%")
     if steps:
@@ -596,6 +713,7 @@ def _profiled(label, fn, steps=None):
             f"({launched} in {steps} steps)")
     for e in sorted(kernels, key=_device_us, reverse=True)[:6]:
         log(f"[profile]   {_device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+    return wall_us, busy_us
 
 
 def phase_profile(dev):
@@ -1160,8 +1278,8 @@ def condition_reference():
     return {"text": text, "image": image, "latents": lat, "clip_s": t_clip, "ddim_s": t_mdm}
 
 
-def write_planted_decoder(ae_dir: str) -> None:
-    """ae_dir/ae_decoder.npz at latent 64: the sheet fixture's decoder with
+def write_planted_decoder(ae_dir: str, latent_size: int = COND_LATENT) -> None:
+    """ae_dir/ae_decoder.npz at `latent_size`: the sheet fixture's decoder with
     its latent projections folded into their biases at the fixture latent
     (kernels zero), so the decoder draws the fixture's sheet whatever latent
     the random denoiser samples; and args.json with its settings."""
@@ -1175,9 +1293,9 @@ def write_planted_decoder(ae_dir: str) -> None:
             v = np.asarray(z[k], np.float32)
             if k.endswith(("gamma/kernel", "beta/kernel")):
                 out[k[4:-6] + "bias"] = latent @ v + np.asarray(z[k[:-6] + "bias"], np.float32)
-                v = np.zeros((COND_LATENT, v.shape[1]), np.float32)
+                v = np.zeros((latent_size, v.shape[1]), np.float32)
             out.setdefault(k[4:], v)
-        settings = {"latent_size": COND_LATENT, "hidden_dim": int(z["hidden_dim"]),
+        settings = {"latent_size": latent_size, "hidden_dim": int(z["hidden_dim"]),
                     "num_hidden_layers": int(z["num_hidden_layers"]),
                     "max_dist": round(float(z["max_dist"]), 6)}
     np.savez(os.path.join(ae_dir, "ae_decoder.npz"), **out)
@@ -1336,6 +1454,313 @@ def phase_condition(dev, ref):
     return out
 
 
+# Diffusion training (phase train): the full-width category MDM at the
+# reference's batch of 2, latent 32 (what generate_cat samples).
+TRAIN_STEPS = 3
+TRAIN_EMA = 0.9  # fast enough that 3 steps move the EMA off its init
+TRAIN_COND_P = 0.1
+# cond_mask_prob 0.1, injected: one of the six examples dropped, so that the
+# null class's row trains within the three steps
+TRAIN_DROP = ((False, False), (False, True), (False, False))
+# Card against the port's CPU run from the same init, batches, t, weights,
+# noise and masks: the relative loss gap of each step; step 1's gradient
+# gap, max |Δg| / max |g| per tensor and over all tensors; after the 3
+# steps, the params' and the EMA's max abs gap where step 1's |g| > 1e-4
+# (nearer 0 Adam's m / (√v + ε) turns f32 rounding into lr-sized moves).
+# PERF.md gives the readings, sound and with the planted faults, they were
+# set from. Readings on an NVIDIA H100 80GB HBM3 at 700 W, loss / tensor /
+# global / params / EMA: sound 9.39e-7 / 4.07e-5 / 3.17e-6 / 7.48e-6 /
+# 1.42e-6; TF32 on 3.05e-4 / 1.93e-3 / 8.00e-4 / 4.79e-4 / 9.67e-5; the
+# attention output detached 0.424 / 1.43 / 0.118 / 6.01e-4 / 1.12e-4 (the 64
+# qkv-conv and norm tensors get no gradient); the optimizer step skipped
+# params 3.01e-4, EMA 5.62e-5; the EMA not updated, EMA 5.62e-5. Each bar
+# sits between the sound reading and the nearest fault.
+TRAIN_BARS = {"loss": 1e-5, "grad_tensor": 3e-4, "grad_global": 5e-5, "params": 3e-5,
+              "ema": 1e-5}
+# The planted faults of phase train, each with the bar that must catch it.
+TRAIN_FAULTS = {"attention output detached": "grad_global", "TF32 on": "grad_global",
+                "optimizer step skipped": "params", "EMA not updated": "ema"}
+TRAIN_TIMED = 50  # steps timed at latent 32
+TRAIN_TIMED_64 = 20  # steps of the latent-64 MDM (text2shape / pix3d presets)
+
+
+def train_inputs(L: int = 32, steps: int = TRAIN_STEPS, seed: int = 30):
+    """`steps` of (batch, t, weights, noise, cond_drop), numpy, seeded: the
+    category batch of 2 (latents, class ids), uniform t, weights around 1."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(steps):
+        batch = {"latents": (0.5 * rng.normal(size=(2, L))).astype(np.float32),
+                 "action": rng.integers(0, 9, size=2).astype(np.int32)}
+        t = rng.integers(0, 1000, size=2).astype(np.int32)
+        w = rng.uniform(0.5, 1.5, size=2).astype(np.float32)
+        noise = rng.normal(size=(2, L, 1)).astype(np.float32)
+        out.append((batch, t, w, noise, np.asarray(TRAIN_DROP[k % len(TRAIN_DROP)])))
+    return out
+
+
+def train_run(dev, init: dict) -> dict:
+    """The category MDM from the state dict `init` trained TRAIN_STEPS steps
+    on `dev` from train_inputs(), EMA on: each step's loss, step 1's
+    gradients (on the CPU; a parameter that got none reads zeros), then the
+    params and EMA."""
+    from surfd_tpu_torch.diffusion import named_schedule
+    from surfd_tpu_torch.models import MDM
+    from surfd_tpu_torch.training import create_train_state, make_optimizer, make_train_step
+
+    mdm = MDM(cond_mode="category", num_actions=9)
+    mdm.load_state_dict(init, strict=True)
+    mdm.to(dev)
+    state = create_train_state(mdm, make_optimizer(mdm.parameters(), 1e-4), ema_rate=TRAIN_EMA)
+    step = make_train_step(mdm, named_schedule("cosine", 1000), cond_mask_prob=TRAIN_COND_P)
+    out = {"loss": []}
+    for k, (batch, t, w, noise, drop) in enumerate(train_inputs()):
+        if k == 0:
+            loss, _ = step.loss_fn(batch, t, w, noise=noise, cond_drop=drop)
+            loss.backward()
+            out["grads"] = {n: (p.grad if p.grad is not None else torch.zeros_like(p)
+                                ).detach().cpu() for n, p in mdm.named_parameters()}
+            mdm.zero_grad(set_to_none=True)
+        out["loss"].append(float(step(state, batch, t, w, noise=noise, cond_drop=drop)["loss"]))
+    out["params"] = {n: p.detach().cpu() for n, p in mdm.named_parameters()}
+    out["ema"] = {n: e.cpu() for n, e in zip(out["params"], state.ema)}
+    return out
+
+
+def train_gaps(got: dict, ref: dict) -> dict:
+    """A run's gaps to the CPU reference, under TRAIN_BARS' keys."""
+    mask = {n: g.abs() > 1e-4 for n, g in ref["grads"].items()}
+
+    def masked(key):
+        return max(float((got[key][n] - r)[mask[n]].abs().max())
+                   for n, r in ref[key].items() if mask[n].any())
+
+    per = {}
+    for n, r in ref["grads"].items():
+        scale = float(r.abs().max())
+        per[n] = float((got["grads"][n] - r).abs().max()) / scale if scale else 0.0
+    top = max(float(r.abs().max()) for r in ref["grads"].values())
+    worst = max(per, key=per.get)
+    return {
+        "loss": max(abs(a - b) / abs(b) for a, b in zip(got["loss"], ref["loss"])),
+        "grad_tensor": per[worst], "grad_tensor_name": worst,
+        "grad_global": max(float((got["grads"][n] - r).abs().max())
+                           for n, r in ref["grads"].items()) / top,
+        "attention_grads_zero": sum(int(not got["grads"][n].any()) for n in ref["grads"]
+                                    if ".qkv." in n or ".norm." in n),
+        "params": masked("params"), "ema": masked("ema"),
+    }
+
+
+def within_train_bars(gaps: dict) -> bool:
+    return all(gaps[k] <= bar for k, bar in TRAIN_BARS.items())
+
+
+@contextlib.contextmanager
+def planted_train_fault(name: str):
+    """One of TRAIN_FAULTS in place for the block, undone after it."""
+    from unittest import mock
+
+    from surfd_tpu_torch.models import unet1d
+    from surfd_tpu_torch.ops import attention_kernel as ak
+    from surfd_tpu_torch.training import common
+    from surfd_tpu_torch.utils import use_full_f32
+
+    with contextlib.ExitStack() as undo:
+        undo.callback(use_full_f32)
+        if name == "attention output detached":  # K2 as the port had it before K2-bwd
+            undo.enter_context(mock.patch.object(
+                unet1d, "qkv_attention", lambda qkv, h: ak.qkv_attention(qkv.detach(), h)))
+        elif name == "TF32 on":
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        elif name == "optimizer step skipped":  # params and AdamW's moments stay as they were
+            undo.enter_context(mock.patch.object(torch.optim.AdamW, "step",
+                                                 lambda self, closure=None: None))
+        elif name == "EMA not updated":
+            undo.enter_context(mock.patch.object(common, "ema_update", lambda *args: None))
+        else:
+            raise ValueError(name)
+        yield
+
+
+def train_reference() -> dict:
+    """The port's CPU run of train_run from category_mdm()'s weights (kept
+    as ref["init"] for the card's runs), outside the counted paths."""
+    init = category_mdm().state_dict()
+    t0 = time.perf_counter()
+    ref = train_run(torch.device("cpu"), init)
+    ref["s"] = time.perf_counter() - t0
+    ref["init"] = init
+    return ref
+
+
+def _k2_counts() -> tuple:
+    from surfd_tpu_torch.ops import attention_kernel as ak
+
+    return (sum(ak.qkv_attention.launches.values()),
+            sum(ak.qkv_attention_bwd.launches.values()))
+
+
+def time_train_steps(mdm, dev, cond: str, L: int, steps: int, label: str,
+                     profiled: bool = False) -> dict:
+    """`steps` train steps of `mdm` through DiffusionTrainer.run (numpy
+    batches, uniform timesteps, noise and masks from a CUDA generator), after
+    5 steps of warm-up: ms a step on the host clock, peak memory allocated,
+    K2 and K2-bwd launches (exactly 16 each a step); with `profiled`, the
+    device busy share of 10 more steps under torch.profiler."""
+    from surfd_tpu_torch.diffusion import named_schedule
+    from surfd_tpu_torch.training import (
+        DiffusionTrainConfig,
+        DiffusionTrainer,
+        create_train_state,
+        make_optimizer,
+    )
+
+    rng = np.random.default_rng(31)
+
+    def batches():
+        while True:
+            b = {"latents": (0.5 * rng.normal(size=(2, L))).astype(np.float32)}
+            if cond == "category":
+                b["action"] = rng.integers(0, 9, size=2).astype(np.int32)
+            else:
+                b["context"] = rng.normal(size=(2, 512)).astype(np.float32)
+            yield b
+
+    cfg = DiffusionTrainConfig(cond_mask_prob=TRAIN_COND_P, log_interval=10**9,
+                               save_interval=10**9, stall_exit_s=0)
+    state = create_train_state(mdm, make_optimizer(mdm.parameters(), 1e-4))
+    trainer = DiffusionTrainer(cfg, mdm, named_schedule("cosine", 1000), state, batches(),
+                               generator=torch.Generator(device=dev).manual_seed(11))
+    trainer.run(5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k2, bwd = _k2_counts()
+    t0 = time.perf_counter()
+    trainer.run(5 + steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    k2, bwd = _k2_counts()[0] - k2, _k2_counts()[1] - bwd
+    peak = torch.cuda.max_memory_allocated()
+    if (k2, bwd) != (16 * steps, 16 * steps):
+        raise RuntimeError(f"{label}: K2 {k2}, K2-bwd {bwd} launches in {steps} steps; "
+                           f"want {16 * steps} each")
+    busy = None
+    if profiled:
+        wall_us, busy_us = _profiled(f"train {label}, 10 steps",
+                                     lambda: trainer.run(state.step + 10), steps=10)
+        busy = None if busy_us is None else busy_us / wall_us
+    log(f"[train] {label}: {ms:.2f} ms a step over {steps} steps, peak memory allocated "
+        f"{peak / 2**30:.3f} GiB, K2 {k2} and K2-bwd {bwd} launches, device busy "
+        + ("not measured" if busy is None else f"{100 * busy:.1f} %"))
+    return {"ms_per_step": ms, "peak_bytes": peak, "k2": k2, "k2_bwd": bwd, "busy_share": busy}
+
+
+def write_class_list(path: str) -> None:
+    """The nine garment classes, one line each, naming phase recon's items."""
+    from surfd_tpu_torch.cli.generate_cat import GARMENT_CLASSES
+
+    items = {"dress": "dress_000", "long-skirt": "skirt_001"}
+    with open(path, "w") as f:
+        f.writelines(f"{c} {items[c]}\n" if c in items else f"{c}\n" for c in GARMENT_CLASSES)
+
+
+def phase_train(dev, ref):
+    """Diffusion training at the full-width category MDM, B 2, latent 32:
+    (a) 3 steps on the card against the port's CPU run (`ref`:
+    train_reference()) from the same init, batches, t, weights, noise and
+    masks, EMA on; each of TRAIN_FAULTS (the attention output detached, K2
+    without its gradient as before K2-bwd; TF32 on; the optimizer step
+    skipped; the EMA not updated) must fail its bar; (b) 50 steps timed, and 20 of the latent-64 MDM; (c) train_diffusion
+    --cond_mode category --precompute_latents in a subprocess for 20 steps,
+    then --resume to 30, then generate_cat --model_path <save_dir> at 128^3
+    reading the run."""
+    from surfd_tpu_torch.models import MDM
+
+    out = {"cpu_reference_s": ref["s"]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = train_run(dev, ref["init"])
+    torch.cuda.synchronize()
+    out["card_s"] = time.perf_counter() - t0
+    gaps = out["sound"] = train_gaps(got, ref)
+    log(f"[train] card vs CPU, 3 steps of the full-width category MDM ({out['card_s']:.2f}s, "
+        f"CPU {ref['s']:.2f}s): losses {got['loss']} vs {ref['loss']}; gaps "
+        + json.dumps(gaps) + f" (bars {json.dumps(TRAIN_BARS)})")
+    if not within_train_bars(gaps) or gaps["attention_grads_zero"]:
+        raise RuntimeError("train: the card's train step is off the CPU run's bars")
+
+    faults = {}
+    for name, key in TRAIN_FAULTS.items():
+        with planted_train_fault(name):
+            f = faults[name] = train_gaps(train_run(dev, ref["init"]), ref)
+        log(f"[train] planted fault, {name}: " + json.dumps(f))
+        if not f[key] > TRAIN_BARS[key]:
+            raise RuntimeError(f"train: bar {key} passes a planted fault: {name}")
+    out["faults"] = faults
+    log(f"[train] (a) with the faults: {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    mdm = MDM(cond_mode="category", num_actions=9)
+    mdm.load_state_dict(ref["init"])
+    out["timed"] = time_train_steps(mdm.to(dev), dev, "category", 32, TRAIN_TIMED,
+                                    "category MDM, latent 32, B 2", profiled=True)
+    mdm = MDM(cond_mode="sketch")
+    mdm.Unet.random_init_(torch.Generator().manual_seed(1))
+    out["timed_64"] = time_train_steps(mdm.to(dev), dev, "sketch", 64, TRAIN_TIMED_64,
+                                       "sketch MDM, latent 64, B 2")
+    del mdm
+    log(f"[train] (b): {time.perf_counter() - t0:.1f}s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_recon_corpus(tmp, dev)
+        write_class_list(os.path.join(tmp, "classes.txt"))
+        write_planted_decoder(os.path.join(tmp, "planted"), latent_size=32)
+        save = os.path.join(tmp, "run")
+        argv = ["--data_root", os.path.join(tmp, "data", "test"), "--ae_dir",
+                os.path.join(tmp, "ae"), "--save_dir", save, "--cond_mode", "category",
+                "--category_list", os.path.join(tmp, "classes.txt"), "--precompute_latents",
+                "--cond_mask_prob", str(TRAIN_COND_P), "--save_interval", "10",
+                "--log_interval", "10"]
+        out["corpus_s"] = time.perf_counter() - t0
+        walls = []
+        for extra in (["--num_steps", "20"], ["--num_steps", "30", "--resume"]):
+            dt, lines, launches = run_cli("train_diffusion", argv + extra, "train")
+            walls.append(dt)
+            steps = int(extra[1]) - (20 if "--resume" in extra else 0)
+            k2 = sum(n for k, n in launches.items() if k.startswith("qkv_attention_T"))
+            bwd = sum(n for k, n in launches.items() if k.startswith("qkv_attention_bwd"))
+            if (k2, bwd) != (16 * steps, 16 * steps):
+                raise RuntimeError(f"train_diffusion: K2 {k2}, K2-bwd {bwd} in {steps} steps")
+            if "--resume" in extra and not any("resumed at step 20" in x for x in lines):
+                raise RuntimeError("train_diffusion --resume did not resume at step 20")
+        ckpts = sorted(os.listdir(os.path.join(save, "ckpt")))
+        with open(os.path.join(save, "metrics.jsonl")) as f:
+            rows = [json.loads(x) for x in f]
+        if ckpts != [f"step_{s:09d}.pt" for s in (10, 20, 30)] or [r["step"] for r in rows] != [
+                10, 20, 30] or not all(np.isfinite(r["loss"]) for r in rows):
+            raise RuntimeError(f"train_diffusion wrote {ckpts}, metrics {rows}")
+        gen = os.path.join(tmp, "gen")
+        dt, lines, _ = run_cli("generate_cat", [
+            "--model_path", save, "--ae_dir", os.path.join(tmp, "planted"), "--category",
+            "dress", "--category_list", os.path.join(tmp, "classes.txt"), "--sampler", "ddim",
+            "--timestep_respacing", "ddim50", "--resolution", "128", "--num_samples", "1",
+            "--output_dir", gen], "train")
+        walls.append(dt)
+        if not any(f"denoiser: step 30 of {os.path.join(save, 'ckpt')}" in x for x in lines):
+            raise RuntimeError("generate_cat did not read the trained run")
+        obj = os.path.join(gen, "cat0_0.obj")
+        if not os.path.getsize(obj):
+            raise RuntimeError("generate_cat wrote an empty OBJ")
+        out.update(cli_s=walls, metrics=rows, obj_bytes=os.path.getsize(obj))
+        log(f"[train] corpus {out['corpus_s']:.1f}s; train_diffusion 20 steps {walls[0]:.1f}s, "
+            f"--resume to 30 {walls[1]:.1f}s, generate_cat from the run {walls[2]:.1f}s "
+            f"({out['obj_bytes']} bytes of OBJ); losses at 10 / 20 / 30: "
+            f"{[r['loss'] for r in rows]}")
+    return out
+
+
 def phase_parity(dev):
     """The sheet fixture at 128^3 (not part of the default run): the card's
     mesh against the port's own CPU mesh (faces within 1 %, symmetric mean
@@ -1440,16 +1865,23 @@ def main() -> int:
         cond_ref = condition_reference()
         log(f"[condition] CPU reference ({torch.get_num_threads()} threads): CLIP "
             f"{cond_ref['clip_s']:.2f}s, text DDIM {cond_ref['ddim_s']:.2f}s")
+    if "train" in phases:  # the CPU reference of the train steps
+        train_ref = train_reference()
+        log(f"[train] CPU reference, 3 steps ({torch.get_num_threads()} threads): "
+            f"{train_ref['s']:.2f}s")
     paths = {"sample": lambda: phase_sample(dev), "extract": lambda: phase_extract(dev),
              "generate": lambda: phase_generate(dev, cfg_ref),
              "recon": lambda: phase_recon(dev, enc_ref),
-             "condition": lambda: phase_condition(dev, cond_ref)}
+             "condition": lambda: phase_condition(dev, cond_ref),
+             "train": lambda: phase_train(dev, train_ref)}
     by_path = {}
     for name in MAIN_PATH:
         if name not in phases:
             continue
         reset_counts()  # count only this path's launches
+        t_path = time.perf_counter()
         paths[name]()
+        log(f"[main path] phase {name}: {time.perf_counter() - t_path:.1f}s")
         if plain_calls():
             raise RuntimeError(f"a plain version ran on the main path, in phase {name} "
                                f"({plain_calls()} calls)")

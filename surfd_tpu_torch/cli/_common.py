@@ -1,8 +1,9 @@
 """Shared plumbing of the generation CLIs: load models → sample latents →
 fill UDF grids → extract and clean meshes → write OBJs.
 
-Weights: the denoiser from a `.pt` state dict with upstream `Unet.*` keys,
-the decoder from the JAX package's `ae_decoder.npz` (read with numpy, bridged
+Weights: the denoiser from a `.pt` state dict with upstream `Unet.*` keys
+or from a `train_diffusion` run directory (its latest checkpoint's EMA, else
+its params), the decoder from the JAX package's `ae_decoder.npz` (read with numpy, bridged
 by utils/convert.py); `--random-init` runs with seeded random weights. The
 architecture the checkpoints were trained with comes from the run
 directories' `args.json` (`merge_saved_args`). TF32 is off for matmuls and
@@ -37,7 +38,8 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     ap.add_argument("--ae_dir", default="",
                     help="AE run dir holding ae_decoder.npz (and args.json)")
     ap.add_argument("--model_path", default="",
-                    help="denoiser .pt state dict (Unet.* keys), or its run dir's args.json beside it")
+                    help="denoiser .pt state dict (Unet.* keys; its run dir's args.json beside "
+                    "it), or a train_diffusion run dir (save_dir or its ckpt/)")
     ap.add_argument("--random-init", action="store_true", help="seeded random weights (smoke test)")
     ap.add_argument("--num_samples", type=int, default=2)
     ap.add_argument("--resolution", type=int, default=256)
@@ -152,11 +154,34 @@ def _explicit_cli_keys(argv) -> set:
     return {tok[2:].split("=", 1)[0].replace("-", "_") for tok in argv if tok.startswith("--")}
 
 
+def checkpoint_dir(model_path: str):
+    """The checkpoint directory of a train_diffusion run named by
+    `model_path` (the save_dir, or its `ckpt/` itself), or None when it names
+    none."""
+    for d in (os.path.join(model_path, "ckpt"), model_path):
+        if os.path.isdir(d) and any(n.startswith("step_") and n.endswith(".pt")
+                                    for n in os.listdir(d)):
+            return d
+    return None
+
+
+def _run_dir(model_path: str) -> str:
+    """The directory whose args.json describes `model_path`: the run dir
+    itself, the save_dir of a `ckpt/`, or the directory of a `.pt` file."""
+    if not os.path.isdir(model_path):
+        return os.path.dirname(model_path)
+    ck = checkpoint_dir(model_path)
+    if ck is not None and os.path.samefile(ck, model_path):
+        return os.path.dirname(os.path.abspath(model_path))
+    return model_path
+
+
 def merge_saved_args(args, argv=None):
     """Overlay the training-time args of the run directories onto `args`.
 
-    Reads `{model_path}/args.json` (the run dir itself, or the directory the
-    `.pt` file sits in) and `{ae_dir}/args.json`. Flags passed explicitly on
+    Reads `{model_path}/args.json` (the run dir itself, the save_dir of a
+    `ckpt/` directory, or the directory the `.pt` file sits in) and
+    `{ae_dir}/args.json`. Flags passed explicitly on
     the command line win. The AE's `max_dist` sets `args.max_dist`, which
     both the evaluator and the extraction use.
 
@@ -180,8 +205,7 @@ def merge_saved_args(args, argv=None):
                 print(f"[{label} args.json] {attr}: {cur} -> {saved[saved_key]}", file=sys.stderr)
             setattr(args, attr, saved[saved_key])
 
-    mp = args.model_path
-    overlay(mp if os.path.isdir(mp) else os.path.dirname(mp), _DIFFUSION_MERGE_KEYS, "diffusion")
+    overlay(_run_dir(args.model_path), _DIFFUSION_MERGE_KEYS, "diffusion")
     overlay(args.ae_dir, _AE_MERGE_KEYS, "ae")
     return args
 
@@ -196,8 +220,11 @@ def build_schedule(args):
 
 
 def load_denoiser(args, cond_mode: str, device):
-    """MDM from --model_path (.pt state dict) or seeded random weights."""
+    """MDM from --model_path (a .pt state dict, or a train_diffusion run:
+    the latest checkpoint's EMA if it has one, else its params) or seeded
+    random weights."""
     from ..models import MDM
+    from ..utils import Checkpointer
     from ..utils.convert import pad_null_class_row
 
     num_actions = args.num_actions or 9
@@ -207,6 +234,15 @@ def load_denoiser(args, cond_mode: str, device):
         if not args.random_init:
             print("WARNING: no --model_path given; using random weights", file=sys.stderr)
         mdm.Unet.random_init_(torch.Generator().manual_seed(0))
+    elif os.path.isdir(args.model_path):
+        ck = checkpoint_dir(args.model_path)
+        if ck is None:
+            raise FileNotFoundError(f"no train_diffusion checkpoint under {args.model_path}")
+        saved = Checkpointer(ck).read()
+        which = "ema" if saved["ema"] is not None else "model"
+        mdm.load_state_dict(saved[which], strict=True)
+        print(f"denoiser: step {saved['step']} of {ck} ({'EMA' if which == 'ema' else 'params'})",
+              file=sys.stderr)
     else:
         sd = torch.load(args.model_path, map_location="cpu", weights_only=True)
         mdm.load_state_dict(pad_null_class_row(sd, num_actions), strict=True)

@@ -3,8 +3,9 @@
 
 Every function takes a `Schedule` and a `model_fn(x, t) -> output` closure;
 conditioning lives in the closure. `t` is a Python int indexing the
-(possibly respaced) schedule; the denoiser and `cond_fn` see
-`sched.model_timesteps(t)` as a (B,) tensor. The model output is read as
+(possibly respaced) schedule, or in training a (B,) tensor of indices, one
+per example; the denoiser and `cond_fn` see `sched.model_timesteps(t)` as a
+(B,) tensor. The model output is read as
 x₀ (START_X, the Surf-D setting), ε (EPSILON) or x_{t-1} (PREVIOUS_X); with
 a LEARNED or LEARNED_RANGE variance its last axis holds 2C channels, the
 mean's C first (channel-last, as in the JAX package).
@@ -13,12 +14,16 @@ The loops are Python loops over the steps. Noise comes from the caller's
 `torch.Generator`, or is injected: `noise` for the initial sample and
 `step_noise` (T − skip_timesteps, *shape) for the steps, so a test can
 replay another implementation's noise exactly. PLMS draws no step noise.
-Training losses are not here.
+
+The training losses (`training_losses`, `vb_terms_bpd` and the likelihood
+helpers) are the JAX package's (surfd_tpu/diffusion/gaussian.py:474-596),
+with per-example `t` and injected or generator-drawn noise.
 """
 
 from __future__ import annotations
 
 import enum
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -41,6 +46,13 @@ class VarType(str, enum.Enum):
     LEARNED_RANGE = "learned_range"
 
 
+class LossType(str, enum.Enum):
+    MSE = "mse"
+    RESCALED_MSE = "rescaled_mse"
+    KL = "kl"
+    RESCALED_KL = "rescaled_kl"
+
+
 class PMeanVar(NamedTuple):
     mean: torch.Tensor
     variance: torch.Tensor
@@ -48,51 +60,66 @@ class PMeanVar(NamedTuple):
     pred_xstart: torch.Tensor
 
 
-def _model_t(sched: Schedule, x: torch.Tensor, t: int) -> torch.Tensor:
-    """The (B,) timesteps the denoiser sees at step `t`."""
+def _model_t(sched: Schedule, x: torch.Tensor, t) -> torch.Tensor:
+    """The (B,) timesteps the denoiser sees at step `t` (an int, or a (B,)
+    tensor of steps)."""
+    if isinstance(t, torch.Tensor):
+        return sched.model_timesteps(t)
     tb = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
     return sched.model_timesteps(tb)
+
+
+def _at(arr: torch.Tensor, t, ndim: int) -> torch.Tensor:
+    """arr[t]: a 0-d value at an int step; at a (B,) tensor of steps, the B
+    values in f32, shaped (B, 1, ...) to broadcast against an ndim tensor."""
+    if not isinstance(t, torch.Tensor):
+        return arr[t]
+    return arr[t].float().reshape((-1,) + (1,) * (ndim - 1))
 
 
 # ---------------------------------------------------------------------------
 # q(x_t | ...) and the model-output conversions
 # ---------------------------------------------------------------------------
 
-def q_sample(sched: Schedule, x_start, t: int, noise):
+def q_sample(sched: Schedule, x_start, t, noise):
     """Sample x_t ~ q(x_t | x_0)."""
-    c = sched.on(x_start.device)
-    return c["sqrt_alphas_cumprod"][t] * x_start + c["sqrt_one_minus_alphas_cumprod"][t] * noise
+    c, nd = sched.on(x_start.device), x_start.dim()
+    return (_at(c["sqrt_alphas_cumprod"], t, nd) * x_start
+            + _at(c["sqrt_one_minus_alphas_cumprod"], t, nd) * noise)
 
 
-def q_posterior_mean_variance(sched: Schedule, x_start, x_t, t: int):
+def q_posterior_mean_variance(sched: Schedule, x_start, x_t, t):
     """q(x_{t-1} | x_t, x_0): (mean, variance, log_variance)."""
-    c = sched.on(x_t.device)
-    mean = c["posterior_mean_coef1"][t] * x_start + c["posterior_mean_coef2"][t] * x_t
-    return mean, c["posterior_variance"][t], c["posterior_log_variance_clipped"][t]
+    c, nd = sched.on(x_t.device), x_t.dim()
+    mean = (_at(c["posterior_mean_coef1"], t, nd) * x_start
+            + _at(c["posterior_mean_coef2"], t, nd) * x_t)
+    return (mean, _at(c["posterior_variance"], t, nd),
+            _at(c["posterior_log_variance_clipped"], t, nd))
 
 
-def predict_xstart_from_eps(sched: Schedule, x_t, t: int, eps):
-    c = sched.on(x_t.device)
-    return c["sqrt_recip_alphas_cumprod"][t] * x_t - c["sqrt_recipm1_alphas_cumprod"][t] * eps
+def predict_xstart_from_eps(sched: Schedule, x_t, t, eps):
+    c, nd = sched.on(x_t.device), x_t.dim()
+    return (_at(c["sqrt_recip_alphas_cumprod"], t, nd) * x_t
+            - _at(c["sqrt_recipm1_alphas_cumprod"], t, nd) * eps)
 
 
-def predict_xstart_from_xprev(sched: Schedule, x_t, t: int, xprev):
-    c = sched.on(x_t.device)
-    coef1, coef2 = c["posterior_mean_coef1"][t], c["posterior_mean_coef2"][t]
+def predict_xstart_from_xprev(sched: Schedule, x_t, t, xprev):
+    c, nd = sched.on(x_t.device), x_t.dim()
+    coef1, coef2 = _at(c["posterior_mean_coef1"], t, nd), _at(c["posterior_mean_coef2"], t, nd)
     return (1.0 / coef1) * xprev - (coef2 / coef1) * x_t
 
 
-def predict_eps_from_xstart(sched: Schedule, x_t, t: int, pred_xstart):
-    c = sched.on(x_t.device)
-    return (c["sqrt_recip_alphas_cumprod"][t] * x_t - pred_xstart) / c[
-        "sqrt_recipm1_alphas_cumprod"][t]
+def predict_eps_from_xstart(sched: Schedule, x_t, t, pred_xstart):
+    c, nd = sched.on(x_t.device), x_t.dim()
+    return (_at(c["sqrt_recip_alphas_cumprod"], t, nd) * x_t - pred_xstart) / _at(
+        c["sqrt_recipm1_alphas_cumprod"], t, nd)
 
 
 def p_mean_variance(
     sched: Schedule,
     model_fn: ModelFn,
     x: torch.Tensor,
-    t: int,
+    t,
     *,
     mean_type: MeanType = MeanType.START_X,
     var_type: VarType = VarType.FIXED_SMALL,
@@ -103,7 +130,7 @@ def p_mean_variance(
     """p(x_{t-1} | x_t) parameters and the x₀ prediction at step `t`.
     `inpainting` is an optional (mask, values) pair: where mask holds, the
     model output is replaced by values."""
-    c = sched.on(x.device)
+    c, nd = sched.on(x.device), x.dim()
     model_output = model_fn(x, _model_t(sched, x, t))
     if inpainting is not None:
         mask, values = inpainting
@@ -114,16 +141,17 @@ def p_mean_variance(
         if var_type == VarType.LEARNED:
             log_variance = var_values
         else:
-            min_log = c["posterior_log_variance_clipped"][t]
-            max_log = torch.log(c["betas"][t])
+            min_log = _at(c["posterior_log_variance_clipped"], t, nd)
+            max_log = torch.log(_at(c["betas"], t, nd))
             frac = (var_values + 1) / 2
             log_variance = frac * max_log + (1 - frac) * min_log
         variance = torch.exp(log_variance)
     elif var_type == VarType.FIXED_LARGE:
-        variance, log_variance = c["fixed_large_variance"][t], c["fixed_large_log_variance"][t]
+        variance = _at(c["fixed_large_variance"], t, nd)
+        log_variance = _at(c["fixed_large_log_variance"], t, nd)
     elif var_type == VarType.FIXED_SMALL:
-        variance = c["posterior_variance"][t]
-        log_variance = c["posterior_log_variance_clipped"][t]
+        variance = _at(c["posterior_variance"], t, nd)
+        log_variance = _at(c["posterior_log_variance_clipped"], t, nd)
     else:
         raise ValueError(f"unsupported var_type {var_type}")
 
@@ -362,3 +390,107 @@ def plms_sample_loop(
                    + torch.sqrt(1 - alpha_bar_prev) * eps_prime)
         prev = [eps] + prev[:2]
     return img
+
+
+# ---------------------------------------------------------------------------
+# Likelihoods and training losses
+# ---------------------------------------------------------------------------
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL between two diagonal Gaussians, elementwise."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x):
+    """The tanh approximation of the standard normal CDF."""
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """Log-likelihood of data discretized to 256 bins in [-1, 1]."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_delta))
+
+
+def mean_flat(x):
+    """Mean over every axis but the first."""
+    return x.reshape(x.shape[0], -1).mean(dim=1)
+
+
+def vb_terms_bpd(sched: Schedule, model_fn: ModelFn, x_start, x_t, t, *,
+                 mean_type=MeanType.START_X, var_type=VarType.FIXED_SMALL,
+                 clip_denoised: bool = True):
+    """The variational bound's term at each example's step `t` ((B,) tensor),
+    in bits: the decoder NLL at t = 0, else KL(q ‖ p). Returns (terms,
+    pred_xstart)."""
+    true_mean, _, true_logvar = q_posterior_mean_variance(sched, x_start, x_t, t)
+    out = p_mean_variance(sched, model_fn, x_t, t, mean_type=mean_type, var_type=var_type,
+                          clip_denoised=clip_denoised)
+    kl = mean_flat(normal_kl(true_mean, true_logvar, out.mean, out.log_variance)) / math.log(2.0)
+    nll = -discretized_gaussian_log_likelihood(x_start, means=out.mean,
+                                               log_scales=0.5 * out.log_variance)
+    nll = mean_flat(nll) / math.log(2.0)
+    return torch.where(t == 0, nll, kl), out.pred_xstart
+
+
+def training_losses(
+    sched: Schedule,
+    model_fn: ModelFn,
+    x_start,
+    t: torch.Tensor,
+    *,
+    noise=None,
+    generator: Optional[torch.Generator] = None,
+    mean_type: MeanType = MeanType.START_X,
+    var_type: VarType = VarType.FIXED_SMALL,
+    loss_type: LossType = LossType.MSE,
+    l1_weight: float = 1000.0,
+) -> dict:
+    """Per-example training terms at steps `t` ((B,) tensor): `latent_l1`
+    (l1_weight · mean |output − target|, the Surf-D loss), `mse`, `vb` (with
+    a learned variance) and `loss` = latent_l1 + vb; the KL losses give
+    `loss` alone. `noise` is q's noise, else drawn from `generator`."""
+    if noise is None:
+        noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                            dtype=x_start.dtype)
+    x_t = q_sample(sched, x_start, t, noise)
+    terms: dict = {}
+
+    if loss_type in (LossType.KL, LossType.RESCALED_KL):
+        loss, _ = vb_terms_bpd(sched, model_fn, x_start, x_t, t, mean_type=mean_type,
+                               var_type=var_type, clip_denoised=False)
+        if loss_type == LossType.RESCALED_KL:
+            loss = loss * sched.num_timesteps
+        terms["loss"] = loss
+        return terms
+
+    model_output = model_fn(x_t, sched.model_timesteps(t))
+
+    if var_type in (VarType.LEARNED, VarType.LEARNED_RANGE):
+        model_output, var_values = model_output.split(x_t.shape[-1], dim=-1)
+        # the bound trains the variance only; the mean's gradient is the L1's
+        frozen = torch.cat([model_output.detach(), var_values], dim=-1)
+        vb, _ = vb_terms_bpd(sched, lambda *_a: frozen, x_start, x_t, t, mean_type=mean_type,
+                             var_type=var_type, clip_denoised=False)
+        if loss_type == LossType.RESCALED_MSE:
+            vb = vb * (sched.num_timesteps / 1000.0)
+        terms["vb"] = vb
+
+    if mean_type == MeanType.PREVIOUS_X:
+        target = q_posterior_mean_variance(sched, x_start, x_t, t)[0]
+    elif mean_type == MeanType.START_X:
+        target = x_start
+    else:
+        target = noise
+    terms["latent_l1"] = l1_weight * mean_flat((model_output - target).abs())
+    terms["mse"] = mean_flat((model_output - target) ** 2)
+    terms["loss"] = terms["latent_l1"] + terms["vb"] if "vb" in terms else terms["latent_l1"]
+    return terms

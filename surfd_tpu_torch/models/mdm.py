@@ -29,6 +29,7 @@ class MDM(nn.Module):
         num_res_blocks: int = 2,
         channel_mult: tuple = (1, 2, 4, 4),
         num_heads: int = 8,
+        dropout: float = 0.0,
     ):
         super().__init__()
         if cond_mode not in COND_MODES:
@@ -43,7 +44,9 @@ class MDM(nn.Module):
             num_classes=num_actions + 1 if cond_mode == "category" else None,
             num_heads=num_heads,
             context_dim=clip_dim if cond_mode in CONTEXT_MODES else None,
+            dropout=dropout,
         )
+        self.dropout = float(dropout)  # res-block dropout, active in train() mode
         self.eval()
 
     @property

@@ -21,17 +21,37 @@ from ..ops.attention_kernel import qkv_attention
 from .layers import GroupNorm32, timestep_embedding
 
 
-class ResBlock1D(nn.Module):
-    """Residual block with additive timestep-embedding injection."""
+class SeededDropout(nn.Module):
+    """Dropout drawing its mask from `self.generator` (a torch.Generator on
+    the input's device, set by the trainer; None draws from the global one).
+    Active in train() mode, the identity in eval() mode or at p 0. Keeps
+    with probability 1 − p and scales kept values by 1 / (1 − p), as Flax's
+    `nn.Dropout` does; the bits differ from JAX's."""
 
-    def __init__(self, channels: int, emb_channels: int, out_channels: int):
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
+        return x * keep / (1.0 - self.p)
+
+
+class ResBlock1D(nn.Module):
+    """Residual block with additive timestep-embedding injection; `dropout`
+    sits between the second SiLU and the last convolution."""
+
+    def __init__(self, channels: int, emb_channels: int, out_channels: int, dropout: float = 0.0):
         super().__init__()
         self.in_layers = nn.Sequential(
             GroupNorm32(channels), nn.SiLU(), nn.Conv1d(channels, out_channels, 3, padding=1)
         )
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out_channels))
         self.out_layers = nn.Sequential(
-            GroupNorm32(out_channels), nn.SiLU(), nn.Dropout(0.0),
+            GroupNorm32(out_channels), nn.SiLU(), SeededDropout(dropout),
             nn.Conv1d(out_channels, out_channels, 3, padding=1),
         )
         self.skip_connection = (
@@ -104,6 +124,7 @@ class UNet1D(nn.Module):
         num_classes: Optional[int] = None,
         num_heads: int = 8,
         context_dim: Optional[int] = None,
+        dropout: float = 0.0,
     ):
         super().__init__()
         mc = model_channels
@@ -124,7 +145,7 @@ class UNet1D(nn.Module):
         )
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
-                layers = [ResBlock1D(ch, ted, mult * mc)]
+                layers = [ResBlock1D(ch, ted, mult * mc, dropout)]
                 ch = mult * mc
                 if ds in attention_resolutions:
                     layers.append(AttentionBlock1D(ch, num_heads))
@@ -135,12 +156,13 @@ class UNet1D(nn.Module):
                 chans.append(ch)
                 ds *= 2
         self.middle_block = TimestepSequential(
-            ResBlock1D(ch, ted, ch), AttentionBlock1D(ch, num_heads), ResBlock1D(ch, ted, ch)
+            ResBlock1D(ch, ted, ch, dropout), AttentionBlock1D(ch, num_heads),
+            ResBlock1D(ch, ted, ch, dropout),
         )
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(channel_mult))):
             for i in range(num_res_blocks + 1):
-                layers = [ResBlock1D(ch + chans.pop(), ted, mult * mc)]
+                layers = [ResBlock1D(ch + chans.pop(), ted, mult * mc, dropout)]
                 ch = mult * mc
                 if ds in attention_resolutions:
                     layers.append(AttentionBlock1D(ch, num_heads))
@@ -188,4 +210,22 @@ class UNet1D(nn.Module):
                 m.bias.zero_()
             elif isinstance(m, nn.Embedding):
                 m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
+        return self
+
+    @torch.no_grad()
+    def training_init_(self, generator: torch.Generator, null_class: Optional[int] = None
+                       ) -> "UNet1D":
+        """The JAX package's initialisation for training from scratch:
+        random_init_'s LeCun-normal weights (Flax draws them truncated), then
+        the reference's zero-initialised convolutions (`zero_module`: each
+        res block's last conv, each attention block's proj_out, the output
+        conv) and the CFG null class's label row at zero."""
+        self.random_init_(generator)
+        zeroed = [b.out_layers[-1] for b in self.modules() if isinstance(b, ResBlock1D)]
+        zeroed += [b.proj_out for b in self.modules() if isinstance(b, AttentionBlock1D)]
+        for m in zeroed + [self.out[-1]]:
+            m.weight.zero_()
+            m.bias.zero_()
+        if null_class is not None:
+            self.label_emb.weight[null_class].zero_()
         return self

@@ -1,11 +1,17 @@
 """Hand-written CUDA kernels with their plain PyTorch versions.
 
-K1 `decoder_kernel.folded_udf` (csrc/folded_mlp.cu) and K2
-`attention_kernel.qkv_attention` (csrc/qkv_attention.cu). The library is
+K1 `decoder_kernel.folded_udf` (csrc/folded_mlp.cu, csrc/folded_mlp_bf16.cu),
+K2 `attention_kernel.qkv_attention` (csrc/qkv_attention.cu) and its gradient
+K2-bwd `attention_kernel.qkv_attention_bwd` (csrc/qkv_attention_bwd.cu). The library is
 built by `_build` at first use on a CUDA tensor, never at import.
 """
 
-from .attention_kernel import qkv_attention, qkv_attention_ref
+from .attention_kernel import (
+    qkv_attention,
+    qkv_attention_bwd,
+    qkv_attention_bwd_ref,
+    qkv_attention_ref,
+)
 from .decoder_kernel import (
     FoldedDecoder,
     fold_decoder,
@@ -16,16 +22,20 @@ from .decoder_kernel import (
 )
 
 __all__ = [
-    "qkv_attention", "qkv_attention_ref", "FoldedDecoder", "fold_decoder",
+    "qkv_attention", "qkv_attention_bwd", "qkv_attention_bwd_ref", "qkv_attention_ref",
+    "FoldedDecoder", "fold_decoder",
     "folded_udf", "folded_udf_mixed_ref", "folded_udf_ref", "posenc_f32", "kernel_calls",
 ]
 
 
 def kernel_calls() -> dict:
-    """This process's kernel launches, K1 by precision and K2 by (T, c), under
-    the row names of chip_smoke.py's kernels line, and its calls of their
-    plain versions."""
+    """This process's kernel launches, K1 by precision and K2 and K2-bwd by
+    (T, c), under the row names of chip_smoke.py's kernels line, and its
+    calls of their plain versions."""
     launches = {f"folded_mlp_{p}": n for p, n in folded_udf.launches.items()}
     launches.update({f"qkv_attention_T{T}_c{c}": n for (T, c), n in qkv_attention.launches.items()})
-    plain = folded_udf_ref.calls + folded_udf_mixed_ref.calls + qkv_attention_ref.calls
+    launches.update({f"qkv_attention_bwd_T{T}_c{c}": n
+                     for (T, c), n in qkv_attention_bwd.launches.items()})
+    plain = (folded_udf_ref.calls + folded_udf_mixed_ref.calls + qkv_attention_ref.calls
+             + qkv_attention_bwd_ref.calls)
     return {"launches": launches, "plain_calls": plain}

@@ -102,6 +102,10 @@ def load() -> ctypes.CDLL:
             lib.surfd_qkv_attention.restype = i32
             # qkv, out, B, T, H, C, scale, qkv's and out's (batch, token, channel) strides, stream
             lib.surfd_qkv_attention.argtypes = [vp, vp, i32, i32, i32, i32, f32] + [i64] * 6 + [vp]
+            lib.surfd_qkv_attention_bwd.restype = i32
+            # qkv, dO, dqkv, B, T, H, C, scale, the three tensors' strides, stream
+            lib.surfd_qkv_attention_bwd.argtypes = ([vp, vp, vp, i32, i32, i32, i32, f32]
+                                                    + [i64] * 9 + [vp])
             _lib = lib
         return _lib
 

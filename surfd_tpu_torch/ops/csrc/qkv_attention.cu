@@ -42,6 +42,13 @@ constexpr int kMaxT = 64;   // two keys per lane
 constexpr int kMaxC = 128;  // four output channels per lane
 constexpr unsigned kFull = 0xffffffffu;
 
+// Dynamic shared memory of a CTA of `rows` query rows of a (T, C) head: K,
+// V and its q rows, and the channel-first output tile, rows padded to an
+// odd stride; 70,672 bytes at kMaxT, kMaxC, kRows.
+constexpr size_t smem_bytes(int T, int C, int rows) {
+  return ((size_t)(2 * T + rows) * (C | 1) + (size_t)C * (rows | 1)) * sizeof(float);
+}
+
 template <int N>
 struct alignas(4 * N) Floats {
   float f[N];
@@ -211,11 +218,18 @@ extern "C" int surfd_qkv_attention(const void* qkv, void* out, int B, int T, int
                    (B == 1 || in_b % 4 == 0);
   auto kernel = vec ? qkv_attention_kernel<4> : qkv_attention_kernel<1>;
   const int rows = T < kRows ? T : kRows;
-  const size_t smem = ((size_t)(2 * T + rows) * (C | 1) + (size_t)C * (rows | 1)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  const size_t smem = smem_bytes(T, C, rows);
+  // The opt-in above 48 KB costs a CUDA API call: made once per device and
+  // kernel, at the kernel's largest size, not on every launch.
+  static unsigned long long opted_in[2] = {0, 0};  // a bit per device, per kernel
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !(opted_in[vec] >> dev & 1)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes(kMaxT, kMaxC, kRows));
     if (e != cudaSuccess) return (int)e;
+    if (dev < 64) opted_in[vec] |= 1ull << dev;
   }
   dim3 grid((T + rows - 1) / rows, H, B);
   kernel<<<grid, rows * 32, smem, (cudaStream_t)stream>>>(

@@ -300,3 +300,105 @@ def test_k2_rejects_other_strides(cuda):
         with pytest.raises(ValueError, match="strides"):
             ak.qkv_attention(bad, HEADS)
     assert sum(ak.qkv_attention.launches.values()) == before
+
+
+# K2-bwd at the training shapes: latent 32 and latent 64, 224 channels, 8 heads.
+K2_BWD_SHAPES = [(32, 28), (16, 56), (8, 112), (4, 112), (64, 28), (32, 56), (16, 112),
+                 (64, 128), (5, 27), (1, 4)]
+# K2-bwd against qkv_attention_bwd_ref, abs, scaled by max(1, max |want|): the
+# bar chip_smoke.py's phase kernels holds it to (PERF.md gives its readings).
+K2_BWD_BAR = 2e-5
+
+
+def _k2_grad(B, T, c, layout, cuda, seed=3):
+    g = torch.from_numpy(
+        np.random.default_rng(seed).normal(size=(B, T, HEADS * c)).astype(np.float32)
+    ).to(cuda)
+    return g if layout == "token" else g.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_layout", ["token", "channel"])
+@pytest.mark.parametrize("layout", ["token", "channel"])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("T,c", K2_BWD_SHAPES)
+def test_k2_bwd_matches_plain(cuda, T, c, B, layout, grad_layout):
+    qkv = _k2_input(B, T, c, layout, cuda)
+    g = _k2_grad(B, T, c, grad_layout, cuda)
+    before = sum(ak.qkv_attention_bwd.launches.values())
+    got = ak.qkv_attention_bwd(qkv, g, HEADS)
+    want = ak.qkv_attention_bwd_ref(qkv, g, HEADS)
+    torch.cuda.synchronize()
+    assert sum(ak.qkv_attention_bwd.launches.values()) == before + 1
+    assert got.stride() == qkv.stride() == want.stride()  # qkv's layout
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= K2_BWD_BAR * scale
+
+
+@pytest.mark.cuda
+def test_k2_grad_goes_through_k2_bwd(cuda):
+    """qkv_attention under autograd: the forward is K2, the backward K2-bwd,
+    and a strided grad_out (not one of the two layouts) is copied, not refused."""
+    x = _k2_input(2, 16, 56, "channel", cuda).detach().requires_grad_(True)
+    g = _k2_grad(2, 16, 56, "token", cuda)
+    fwd = sum(ak.qkv_attention.launches.values())
+    bwd = sum(ak.qkv_attention_bwd.launches.values())
+    out = ak.qkv_attention(x, HEADS)
+    out.backward(torch.cat([g, g], 2)[:, :, :g.shape[2]])  # g, as a slice of a wider tensor
+    torch.cuda.synchronize()
+    assert sum(ak.qkv_attention.launches.values()) == fwd + 1
+    assert sum(ak.qkv_attention_bwd.launches.values()) == bwd + 1
+    want = ak.qkv_attention_bwd_ref(x.detach(), g, HEADS)
+    assert float((x.grad - want).abs().max()) <= K2_BWD_BAR * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_k2_bwd_rejects_bad_input(cuda):
+    x = torch.zeros(2, 8, 3 * HEADS * 4, device=cuda)
+    g = torch.zeros(2, 8, HEADS * 4, device=cuda)
+    before = sum(ak.qkv_attention_bwd.launches.values())
+    with pytest.raises(ValueError, match="strides"):
+        ak.qkv_attention_bwd(x[:, ::2], g[:, ::2], HEADS)
+    with pytest.raises(ValueError):
+        ak.qkv_attention_bwd(x, g.half(), HEADS)
+    with pytest.raises(ValueError):
+        ak.qkv_attention_bwd(x, g[:, :4], HEADS)
+    with pytest.raises(ValueError):
+        ak.qkv_attention_bwd(x, g.cpu(), HEADS)
+    with pytest.raises(ValueError):  # past the kernel's T limit
+        ak.qkv_attention_bwd(torch.zeros(1, 65, 3 * HEADS * 4, device=cuda),
+                             torch.zeros(1, 65, HEADS * 4, device=cuda), HEADS)
+    assert sum(ak.qkv_attention_bwd.launches.values()) == before
+
+
+@pytest.mark.cuda
+def test_mdm_backward_on_card_matches_cpu(cuda):
+    """The fault this kernel fixes: a backward through the full-width MDM on
+    the card gives every attention block's qkv conv and norm a gradient (K2's
+    output once had no grad_fn, so they got none), equal to the CPU's within
+    1e-4 of each tensor's max |g|; K2-bwd launches 16 times."""
+    mdm = MDM(cond_mode="category", num_actions=9)
+    mdm.Unet.random_init_(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, 32, 1)).astype(np.float32))
+    target = torch.from_numpy(rng.normal(size=(2, 32, 1)).astype(np.float32))
+    t, y = torch.tensor([3, 700]), torch.tensor([1, 9])
+
+    def grads(model, dev):
+        model.zero_grad(set_to_none=True)
+        out = model(x.to(dev), t.to(dev), action=y.to(dev))
+        (out - target.to(dev)).abs().mean().backward()
+        return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    want = grads(mdm, torch.device("cpu"))
+    before = sum(ak.qkv_attention_bwd.launches.values())
+    got = grads(mdm.to(cuda), cuda)
+    torch.cuda.synchronize()
+    assert sum(ak.qkv_attention_bwd.launches.values()) - before == 16
+    attn = [n for n in want if ".qkv." in n or ".norm." in n]
+    assert len(attn) == 16 * 4
+    for n in attn:
+        assert float(got[n].abs().max()) > 0, n
+    for n, w in want.items():
+        scale = float(w.abs().max())
+        assert float((got[n] - w).abs().max()) <= 1e-4 * scale, n
