@@ -1,9 +1,12 @@
 """K2's gradient on the CPU: `qkv_attention_bwd_ref` (the plain version of
 K2-bwd) against `jax.vjp` of surfd_tpu.models.layers.qkv_attention at the
-training shapes in both layouts, `torch.autograd.gradcheck` in f64, and the
-autograd.Function that carries K2 against autograd through
+training shapes in both layouts, an emulation of K2-bwd's split of a head
+over a cluster of CTAs against the same, `torch.autograd.gradcheck` in f64,
+and the autograd.Function that carries K2 against autograd through
 `qkv_attention_ref`. The kernel-vs-plain check is in
 test_torch_kernels_cuda.py."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +21,8 @@ from surfd_tpu_torch.ops import attention_kernel as ak
 HEADS = 8
 # (T, c) of the MDM's attention blocks at latent 32 and latent 64
 SHAPES = [(32, 28), (16, 56), (8, 112), (4, 112), (64, 28), (32, 56), (16, 112)]
+# ragged T: blocks of unequal rows (17 = 6 + 6 + 5, 63 = 7 x 8 + 7), one row, one CTA of 3
+EDGE_SHAPES = [(1, 28), (3, 112), (17, 56), (33, 28), (63, 28)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -51,6 +56,61 @@ def test_bwd_ref_matches_jax_vjp(T, c, layout):
     qkv = _as(x, layout)
     got = ak.qkv_attention_bwd_ref(qkv, _as(g, layout), HEADS)
     assert got.stride() == qkv.stride()  # qkv's layout
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def _split_emulation(qkv: torch.Tensor, grad_out: torch.Tensor, heads: int) -> torch.Tensor:
+    """K2-bwd's partition (csrc/qkv_attention_bwd.cu) written out in torch, for
+    this test only: R = ceil(T / 8) CTAs per (batch, head) (`cluster_of`
+    there), CTA r owning block r of query rows and of key rows. Phase 1 takes
+    each query block's row statistics (m, l, D) and dq; the exchange joins
+    them; phase 2 recomputes P[:, r] and dS[:, r] for each key block from
+    those statistics alone, and takes dk and dV. The scale is applied to the
+    products, as in the kernel. Returns dqkv in qkv's layout."""
+    B, T, W = qkv.shape
+    c = W // (3 * heads)
+    R = -(-T // 8)
+    rows = -(-T // R)
+    assert R <= 8 and rows <= 8 and (R - 1) * rows < T  # no empty block
+    blocks = [slice(r * rows, min(T, (r + 1) * rows)) for r in range(R)]
+    q, k, v = (x.permute(0, 2, 1, 3) for x in qkv.reshape(B, T, heads, 3 * c).split(c, dim=-1))
+    do = grad_out.reshape(B, T, heads, c).permute(0, 2, 1, 3)  # (B, H, T, c)
+    s2 = 1.0 / math.sqrt(c)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = []
+    for blk in blocks:  # phase 1: query block r
+        s = s2 * (q[:, :, blk] @ k.transpose(-1, -2))
+        dp = do[:, :, blk] @ v.transpose(-1, -2)
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        l_ = e.sum(-1, keepdim=True)
+        p = e / l_
+        d = (p * dp).sum(-1, keepdim=True)
+        dq[:, :, blk] = s2 * ((p * (dp - d)) @ k)
+        stats.append((m, l_, d))
+    m, l_, d = (torch.cat(x, dim=2) for x in zip(*stats))  # the exchange: (B, H, T, 1) each
+    for blk in blocks:  # phase 2: key block r, against every query row
+        s = s2 * (q @ k[:, :, blk].transpose(-1, -2))
+        dp = do @ v[:, :, blk].transpose(-1, -2)
+        p = torch.exp(s - m) / l_
+        ds = p * (dp - d)
+        dk[:, :, blk] = s2 * (ds.transpose(-1, -2) @ q)
+        dv[:, :, blk] = p.transpose(-1, -2) @ do
+    grad = torch.cat([dq, dk, dv], dim=-1).permute(0, 2, 1, 3).reshape(B, T, W)
+    return ak._in_layout(grad, ak._channel_first(qkv))
+
+
+@pytest.mark.parametrize("layout", ["token", "channel"])
+@pytest.mark.parametrize("T,c", SHAPES + EDGE_SHAPES)
+def test_split_emulation_matches_jax_vjp(T, c, layout):
+    """K2-bwd's cluster split, emulated on the CPU, against jax.vjp; bar 1e-5
+    abs, as the plain version's."""
+    x, g = _inputs(2, T, c, seed=T * c + 1)
+    _, vjp = jax.vjp(lambda a: jax_qkv_attention(a, HEADS), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    qkv = _as(x, layout)
+    got = _split_emulation(qkv, _as(g, layout), HEADS)
+    assert got.stride() == qkv.stride()
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 

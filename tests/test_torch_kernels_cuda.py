@@ -302,9 +302,12 @@ def test_k2_rejects_other_strides(cuda):
     assert sum(ak.qkv_attention.launches.values()) == before
 
 
-# K2-bwd at the training shapes: latent 32 and latent 64, 224 channels, 8 heads.
+# K2-bwd at the training shapes: latent 32 and latent 64, 224 channels, 8 heads;
+# then the limits and ragged T, whose cluster blocks are unequal (17 = 6 + 6 + 5,
+# 33 = 7 x 4 + 5, 63 = 7 x 8 + 7) or hold one CTA (T <= 8), at c 1 and 128 too.
 K2_BWD_SHAPES = [(32, 28), (16, 56), (8, 112), (4, 112), (64, 28), (32, 56), (16, 112),
-                 (64, 128), (5, 27), (1, 4)]
+                 (64, 128), (5, 27), (1, 4), (1, 128), (3, 1), (17, 56), (17, 128),
+                 (33, 1), (33, 28), (63, 28), (63, 128), (64, 1)]
 # K2-bwd against qkv_attention_bwd_ref, abs, scaled by max(1, max |want|): the
 # bar chip_smoke.py's phase kernels holds it to (PERF.md gives its readings).
 K2_BWD_BAR = 2e-5
@@ -320,7 +323,7 @@ def _k2_grad(B, T, c, layout, cuda, seed=3):
 @pytest.mark.cuda
 @pytest.mark.parametrize("grad_layout", ["token", "channel"])
 @pytest.mark.parametrize("layout", ["token", "channel"])
-@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("B", [1, 2, 3, 4])
 @pytest.mark.parametrize("T,c", K2_BWD_SHAPES)
 def test_k2_bwd_matches_plain(cuda, T, c, B, layout, grad_layout):
     qkv = _k2_input(B, T, c, layout, cuda)
@@ -333,6 +336,19 @@ def test_k2_bwd_matches_plain(cuda, T, c, B, layout, grad_layout):
     assert got.stride() == qkv.stride() == want.stride()  # qkv's layout
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= K2_BWD_BAR * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,c", K2_BWD_SHAPES)
+def test_k2_bwd_is_bit_stable(cuda, T, c):
+    """Two calls on the same inputs give the same bits: no atomics, a fixed
+    order of every sum (a CUDA graph of the train step relies on it)."""
+    qkv = _k2_input(2, T, c, "channel", cuda)
+    g = _k2_grad(2, T, c, "channel", cuda)
+    first = ak.qkv_attention_bwd(qkv, g, HEADS)
+    second = ak.qkv_attention_bwd(qkv, g, HEADS)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -371,12 +387,16 @@ def test_k2_bwd_rejects_bad_input(cuda):
     assert sum(ak.qkv_attention_bwd.launches.values()) == before
 
 
-@pytest.mark.cuda
-def test_mdm_backward_on_card_matches_cpu(cuda):
-    """The fault this kernel fixes: a backward through the full-width MDM on
-    the card gives every attention block's qkv conv and norm a gradient (K2's
-    output once had no grad_fn, so they got none), equal to the CPU's within
-    1e-4 of each tensor's max |g|; K2-bwd launches 16 times."""
+def _k2_bwd_calls(kernel=ak.qkv_attention_bwd, plain=ak.qkv_attention_bwd_ref):
+    """(K2-bwd launches, plain-version calls) so far; the functions are bound
+    at import, so a test that swaps them in `ak` still counts these two."""
+    return sum(kernel.launches.values()), plain.calls
+
+
+def _mdm_grads_cpu_and_card(cuda):
+    """Parameter gradients of the full-width category MDM (seeded) for one L1
+    loss, on the CPU and then on the card: (cpu, card) dicts by name, and the
+    card run's (K2-bwd launches, plain K2-bwd calls)."""
     mdm = MDM(cond_mode="category", num_actions=9)
     mdm.Unet.random_init_(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(5)
@@ -391,10 +411,20 @@ def test_mdm_backward_on_card_matches_cpu(cuda):
         return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
 
     want = grads(mdm, torch.device("cpu"))
-    before = sum(ak.qkv_attention_bwd.launches.values())
+    before = _k2_bwd_calls()
     got = grads(mdm.to(cuda), cuda)
     torch.cuda.synchronize()
-    assert sum(ak.qkv_attention_bwd.launches.values()) - before == 16
+    return want, got, tuple(n - m for n, m in zip(_k2_bwd_calls(), before))
+
+
+@pytest.mark.cuda
+def test_mdm_backward_on_card_matches_cpu(cuda):
+    """The fault this kernel fixes: a backward through the full-width MDM on
+    the card gives every attention block's qkv conv and norm a gradient (K2's
+    output once had no grad_fn, so they got none), equal to the CPU's within
+    1e-4 of each tensor's max |g|; K2-bwd launches 16 times."""
+    want, got, calls = _mdm_grads_cpu_and_card(cuda)
+    assert calls == (16, 0)
     attn = [n for n in want if ".qkv." in n or ".norm." in n]
     assert len(attn) == 16 * 4
     for n in attn:
@@ -402,3 +432,26 @@ def test_mdm_backward_on_card_matches_cpu(cuda):
     for n, w in want.items():
         scale = float(w.abs().max())
         assert float((got[n] - w).abs().max()) <= 1e-4 * scale, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attention", ["kernels", "plain"])
+def test_mdm_backward_gap_by_attention(cuda, attention, monkeypatch):
+    """Bisects the card's gradient gap to the CPU: the same backward with K2
+    and K2-bwd, or with both swapped for their plain versions (here only),
+    so that the rest of the card's work (cuDNN, cuBLAS) is the same in both.
+    Prints the tensor with the largest gap over its own max |g|, and the
+    largest gap over the global max |g|; run with -s to read them. Both stay
+    within the 1e-4 bar of test_mdm_backward_on_card_matches_cpu."""
+    if attention == "plain":
+        monkeypatch.setattr(ak, "_launch_fwd", ak.qkv_attention_ref)
+        monkeypatch.setattr(ak, "qkv_attention_bwd", ak.qkv_attention_bwd_ref)
+    want, got, calls = _mdm_grads_cpu_and_card(cuda)
+    assert calls == ((16, 0) if attention == "kernels" else (0, 16))
+    gaps = {n: float((got[n] - w).abs().max()) for n, w in want.items()}
+    rel = {n: g / max(float(want[n].abs().max()), 1e-30) for n, g in gaps.items()}
+    worst = max(rel, key=rel.get)
+    top = max(float(w.abs().max()) for w in want.values())
+    print(f"\n[gap] attention {attention}: worst tensor {worst} {rel[worst]:.3e} of its max |g|; "
+          f"global {max(gaps.values()) / top:.3e} of the global max |g| ({max(gaps, key=gaps.get)})")
+    assert rel[worst] <= 1e-4, worst

@@ -281,28 +281,49 @@ def test_loop_noise_contract(mdm):
         p_sample_loop(st, tm, SHAPE, torch.Generator(), skip_timesteps=st.num_timesteps)
 
 
-def _category_pair(num_actions=3, seed=5):
+def _category_pair(num_actions=3, seed=5, channels=16):
     """Tiny category MDMs on equal weights; the CFG null row stays zero."""
-    fm = FlaxMDM(cond_mode="category", model_channels=16, channel_mult=(1, 2),
+    fm = FlaxMDM(cond_mode="category", model_channels=channels, channel_mult=(1, 2),
                  num_res_blocks=1, num_actions=num_actions)
     init = fm.init(jax.random.PRNGKey(0), jnp.zeros((1, L, 1)), jnp.zeros((1,), jnp.int32),
                    action=jnp.zeros((1,), jnp.int32))
     params = _randomize(jax.tree.map(np.asarray, dict(init["params"])),
                         np.random.default_rng(seed))
     params["unet"]["label_emb"]["embedding"][-1] = 0.0
-    tm = MDM(cond_mode="category", model_channels=16, channel_mult=(1, 2), num_res_blocks=1,
-             num_actions=num_actions)
+    tm = MDM(cond_mode="category", model_channels=channels, channel_mult=(1, 2),
+             num_res_blocks=1, num_actions=num_actions)
     tm.load_state_dict(mdm_state_from_flax({"params": params}, (1, 2), 1), strict=True)
     return fm, {"params": jax.tree.map(jnp.asarray, params)}, tm
 
 
-def test_category_cfg_ddim_matches_jax():
-    """DDIM through the category denoiser with guidance 2.5 (one batched
-    pass of 2B with the null class)."""
+def _category_cfg(channels, action):
+    """JAX's and the port's CFG denoisers (guidance 2.5, one batched pass of
+    2B with the null class) over tiny category MDMs on equal weights, and the
+    port's MDM."""
     torch.set_num_threads(1)
-    fm, fvars, tm = _category_pair()
-    action = np.array([0, 2], np.int32)
+    fm, fvars, tm = _category_pair(channels=channels)
     jfn = jax_cfg(fm, fvars, 2.5, action=jnp.asarray(action))
     tfn = make_cfg_model_fn(tm, 2.5, action=torch.from_numpy(action).long())
+    return jfn, tfn, tm
+
+
+def test_category_cfg_ddim_matches_jax():
+    """DDIM through the category denoiser with guidance 2.5."""
+    jfn, tfn, _ = _category_cfg(16, np.array([0, 2], np.int32))
     want, got = _run_both("ddim", jfn, tfn, clip_denoised=False)
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_category_cfg_ddim_matches_jax_64_channels():
+    """The same at 64 channels, where GroupNorm32 groups two channels and the
+    class embedding reaches the output (at 16 each group is one channel and
+    cancels it): zeroing the classes' embedding rows moves the samples far
+    past the bar."""
+    action = np.array([0, 2], np.int32)
+    jfn, tfn, tm = _category_cfg(64, action)
+    want, got = _run_both("ddim", jfn, tfn, clip_denoised=False)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    with torch.no_grad():
+        tm.Unet.label_emb.weight[torch.from_numpy(action).long()] = 0.0
+    _, unconditioned = _run_both("ddim", jfn, tfn, clip_denoised=False)
+    assert float(np.abs(unconditioned - got).max()) > 100 * ATOL
