@@ -72,13 +72,30 @@ Phases, each fatal on failure:
      subprocess on phase recon's two-item corpus, 20 steps, then --resume
      to 30, then generate_cat --model_path <save_dir> (ddim50, 128^3, the
      planted sheet decoder) reading the run;
-  9. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
+  9. AE training at the deepfashion3d preset (latent 32, the CBN decoder 512
+     wide with 5 blocks, DGCNN k 20): 4 steps (the third skipped on a NaN
+     cloud) at B 2 x 10,000 cloud points x 4,096 queries on the card against
+     the port's own CPU run from one JAX-scheme init: the loss terms, every
+     kept step's gradients, the params and every BatchNorm running buffer
+     within AE_BARS; five planted faults (TF32 on, the coordinate gradient
+     without create_graph, the decoder's batch statistics detached, momentum
+     0.9 on the batch's side, the buffers kept after the skip) must each fail
+     their bar; the step timed at B 8 x 20,000 queries (ms a step, peak
+     memory, device busy share, kernels a step, the top kernels); then the
+     CLI chain in subprocesses: preprocess_udfs on 14 meshes written with
+     numpy (the sheet fixture's 128^3 extraction among them) at its
+     defaults, train_ae --config deepfashion3d --curriculum for 6 epochs,
+     --resume to 10 (the curriculum grows 8 -> 11 -> 12, the steps resume),
+     its npz pair equal to its last checkpoint, and export_meshes at 128^3
+     reading the run (K1 f32 and bf16 launched); no hand-written kernel runs
+     in the train step itself;
+  10. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
      turns with SDPA's;
-  10. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
+  11. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
      (DDIM, guidance 2.5, two extractions at a time) and generate_uncond
      (PLMS, watertight).
 
-Phases 3-8 are the main path: each runs with the launch counts set to 0
+Phases 3-9 are the main path: each runs with the launch counts set to 0
 just before it and read just after, and no plain version may run in them.
 
 Not in the default run: `--phases build,profile` (where the time goes, and
@@ -113,9 +130,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "surfd_tpu", "assets", "bench_sheet_decoder.npz")
 PHASES = ("build", "kernels", "sample", "extract", "generate", "recon", "condition", "train",
-          "host", "cli")  # default
+          "ae", "host", "cli")  # default
 # counted: launches, no plain version
-MAIN_PATH = ("sample", "extract", "generate", "recon", "condition", "train")
+MAIN_PATH = ("sample", "extract", "generate", "recon", "condition", "train", "ae")
 EXTRA_PHASES = ("profile", "bars", "parity")
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type.
@@ -1052,20 +1069,6 @@ def encoder_reference():
     return idx, lat, time.perf_counter() - t0
 
 
-def dgcnn_flat(enc) -> dict:
-    """The encoder's weights in the JAX package's flat-key npz layout
-    (`ae_encoder.npz`: `params/...`, `batch_stats/...`)."""
-    out = {}
-    for i, name in enumerate([f"block{j}" for j in range(1, 5)] + ["head"], 1):
-        conv, bn = getattr(enc, f"conv_{i}"), getattr(enc, f"bn_{i}")
-        out[f"params/{name}_conv/kernel"] = conv.weight.detach().cpu().numpy().T
-        out[f"params/{name}_bn/scale"] = bn.weight.detach().cpu().numpy()
-        out[f"params/{name}_bn/bias"] = bn.bias.detach().cpu().numpy()
-        out[f"batch_stats/{name}_bn/mean"] = bn.running_mean.cpu().numpy()
-        out[f"batch_stats/{name}_bn/var"] = bn.running_var.cpu().numpy()
-    return out
-
-
 def write_recon_corpus(root: str, dev) -> None:
     """ae/ (the fixture decoder; the seeded encoder with its head planted:
     BatchNorm scale 1e-3 and shift the fixture latent, all positive, so the
@@ -1074,6 +1077,7 @@ def write_recon_corpus(root: str, dev) -> None:
     their cloud; skirt_001 also carries a ground-truth mesh, the port's
     256^3 extraction of the fixture latent on the card."""
     from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf, make_udf_fn
+    from surfd_tpu_torch.utils.convert import dgcnn_flat_from_state
 
     ae, data = os.path.join(root, "ae"), os.path.join(root, "data", "test")
     os.makedirs(ae)
@@ -1086,7 +1090,7 @@ def write_recon_corpus(root: str, dev) -> None:
     with torch.no_grad():
         enc.bn_5.weight.fill_(1e-3)
         enc.bn_5.bias.copy_(torch.from_numpy(fx["latent"]))
-    np.savez(os.path.join(ae, "ae_encoder.npz"), **dgcnn_flat(enc))
+    np.savez(os.path.join(ae, "ae_encoder.npz"), **dgcnn_flat_from_state(enc.state_dict()))
     gt = get_mesh_from_udf(make_udf_fn(dec, None, torch.from_numpy(fx["latent"]),
                                        fx["max_dist"], device=dev),
                            MeshExtractionConfig(resolution=256, surface_bias="auto"))
@@ -1805,6 +1809,456 @@ def phase_train(dev, ref):
     return out
 
 
+# AE training (phase ae): the deepfashion3d preset (latent 32, the CBN decoder
+# 512 wide with 5 blocks, DGCNN k 20, 10,000 cloud points and 20,000 queries
+# an item, batch 8, max_dist 0.1, lr 1e-4, grad-loss weight 0.1).
+AE_LATENT, AE_HIDDEN, AE_LAYERS, AE_B, AE_Q = 32, 512, 5, 8, 20_000
+# Card against the port's CPU run: the batch cut to 2 x 4,096 queries (the
+# clouds stay 10,000 points), so that the CPU side takes about a minute.
+AE_CHECK_B, AE_CHECK_Q = 2, 4096
+AE_NAN_STEP = 2  # of 4 steps: a NaN in this batch's cloud, the step skipped
+# Biases that only BatchNorms read (through the residual stream): their
+# gradient is 0 in exact arithmetic, so each side reads rounding noise. They
+# are held by the global gradient bar only.
+AE_BN_CANCELLED = ("decoder.fc_p.bias", ".fc_0.bias", ".fc_1.bias")
+# Card against the port's CPU run from the same init and batches, over the
+# steps not skipped: the loss terms' relative gaps; the gradient gaps, max
+# |Δg| / max |g| per tensor (decoder and encoder apart) and over all tensors;
+# after the steps, the params' max abs gap where every step's |g| is > 1e-4
+# or exactly 0, and every BatchNorm running buffer's max |Δ| / max(1, |CPU|).
+# PERF.md gives the readings, sound and with the planted faults, they were
+# set from. Readings on an NVIDIA H100 80GB HBM3 at 700 W,
+# loss / decoder / encoder / global / params / buffers: sound 1.83e-6 /
+# 1.03e-2 / 6.71e-3 / 2.07e-4 / 1.24e-6 / 5.17e-5; TF32 on 4.83e-5 / 6.44e-2 /
+# 0.724 / 1.34e-2 / 3.19e-4 / 4.43e-4; without create_graph 2.98e-2 / 0.904 /
+# 0.711 / 0.158 / 6.00e-4 / 1.34e-3; statistics detached 1.90 / 20.1 / 0.309 /
+# 0.777 / 6.01e-4 / 2.67e-2; momentum 0.9, buffers 1.12; buffers kept, NaN.
+# Each bar sits between the sound reading and the nearest fault.
+AE_BARS = {"loss": 1e-5, "grad_decoder": 3e-2, "grad_encoder": 5e-2, "grad_global": 2e-3,
+           "params": 2e-5, "buffers": 2e-4}
+# The planted faults of phase ae, each with the bar that must catch it.
+AE_FAULTS = {"TF32 on": "grad_global",
+             "coordinate gradient without create_graph": "grad_global",
+             "batch statistics detached in the decoder": "loss",
+             "momentum 0.9 on the batch's side": "buffers",
+             "BatchNorm buffers kept after a skipped step": "buffers"}
+AE_TIMED = 10  # steps timed at the preset's batch
+
+
+def ae_batches(B: int, Q: int, steps: int, seed: int) -> list:
+    """`steps` AE batches, numpy, seeded: item i's cloud on a sphere of
+    radius 0.35 + 0.1 i (10,000 points, 0.005 of noise), its queries within
+    0.15 of it, the clipped UDF labels (about two thirds inside the grad
+    loss's mask) and the unit radial gradients."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        rad = (0.35 + 0.1 * np.arange(B))[:, None, None]
+        d = rng.normal(size=(B, RECON_POINTS, 3))
+        pcd = rad * d / np.linalg.norm(d, axis=-1, keepdims=True)
+        r = rad + rng.uniform(-0.15, 0.15, (B, Q, 1))
+        d = rng.normal(size=(B, Q, 3))
+        unit = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        out.append({"pcd": (pcd + 0.005 * rng.normal(size=pcd.shape)).astype(np.float32),
+                    "coords": (r * unit).astype(np.float32),
+                    "udf": np.minimum(np.abs(r - rad)[..., 0], 0.1).astype(np.float32),
+                    "gradients": (np.sign(r - rad) * unit).astype(np.float32)})
+    return out
+
+
+def ae_inputs() -> list:
+    """Phase ae's card-vs-CPU batches: 4 steps at AE_CHECK_B x AE_CHECK_Q, a
+    NaN planted in the cloud of step AE_NAN_STEP (that step is skipped)."""
+    batches = ae_batches(AE_CHECK_B, AE_CHECK_Q, 4, seed=40)
+    batches[AE_NAN_STEP]["pcd"][1, 17] = np.nan
+    return batches
+
+
+def ae_run(dev, init: dict) -> dict:
+    """The AutoEncoder from the state dict `init` on `dev`, trained on
+    ae_inputs(): each step's loss terms, skip flag and gradients (on the
+    CPU, read as the step hands them to its update), then the params and the
+    BatchNorm buffers."""
+    from unittest import mock
+
+    from surfd_tpu_torch.training import (
+        AutoEncoder,
+        ae_trainer,
+        create_train_state,
+        make_ae_train_step,
+        make_optimizer,
+    )
+
+    ae = AutoEncoder(AE_LATENT, AE_HIDDEN, AE_LAYERS, k=RECON_K)
+    ae.load_state_dict(init, strict=True)
+    ae.to(dev)
+    state = create_train_state(ae, make_optimizer(ae.parameters(), 1e-4))
+    step = make_ae_train_step(ae, max_dist=0.1, grad_loss_weight=0.1)
+    out = {"steps": [], "grads": []}
+    update = ae_trainer.apply_update_if_finite
+
+    def recorded(st, loss, buffers=None):
+        out["grads"].append({n: p.grad.detach().cpu() for n, p in ae.named_parameters()})
+        return update(st, loss, buffers)
+
+    with mock.patch.object(ae_trainer, "apply_update_if_finite", recorded):
+        for batch in ae_inputs():
+            m = step(state, batch)
+            out["steps"].append({key: float(m[key]) for key in
+                                 ("loss", "udf_loss", "grad_loss", "nonfinite_skipped")})
+    out["params"] = {n: p.detach().cpu() for n, p in ae.named_parameters()}
+    out["buffers"] = {n: b.detach().cpu() for n, b in ae.named_buffers()
+                      if b.is_floating_point()}
+    return out
+
+
+def ae_gaps(got: dict, ref: dict) -> dict:
+    """A run's gaps to the CPU reference, under AE_BARS' keys, over the
+    steps the reference did not skip (NaN where a side reads NaN: it fails
+    every bar). Gradient gaps are per tensor over that step's max |g| (the
+    tensors whose reference gradient is 0 at a step are held by the global
+    bar there: at the JAX-scheme init the zero CBN kernels cut the latent
+    off, so the encoder's step-1 gradient is 0). The params' gap is read
+    where every step's |g| is > 1e-4 or exactly 0."""
+    def rel(a, b):
+        return abs(a - b) / abs(b) if np.isfinite(a) and np.isfinite(b) else float("nan")
+
+    def nan_max(vals):
+        vals = list(vals)
+        return float("nan") if any(np.isnan(v) for v in vals) else max(vals)
+
+    kept = [k for k, r in enumerate(ref["steps"]) if not r["nonfinite_skipped"]]
+    per, glob = {}, []
+    for k in kept:
+        g, r = got["grads"][k], ref["grads"][k]
+        for n, rv in r.items():
+            scale = float(rv.abs().max())
+            if scale and not n.endswith(AE_BN_CANCELLED):
+                per[(k, n)] = float((g[n] - rv).abs().max()) / scale
+        glob.append(max(float((g[n] - rv).abs().max()) for n, rv in r.items())
+                    / max(float(rv.abs().max()) for rv in r.values()))
+    worst = {part: max((key for key in per if key[1].startswith(part)), key=per.get)
+             for part in ("decoder.", "encoder.")}
+    mask = {}
+    for n in ref["params"]:
+        g = torch.stack([ref["grads"][k][n].abs() for k in kept])
+        mask[n] = ((g > 1e-4) | (g == 0)).all(0) & (g > 1e-4).any(0)
+    return {
+        "loss": nan_max(rel(got["steps"][k][key], ref["steps"][k][key]) for k in kept
+                        for key in ("loss", "udf_loss", "grad_loss")),
+        "grad_decoder": per[worst["decoder."]], "grad_decoder_at": worst["decoder."],
+        "grad_encoder": per[worst["encoder."]], "grad_encoder_at": worst["encoder."],
+        "grad_global": nan_max(glob),
+        "params": nan_max(float((got["params"][n] - r)[mask[n]].abs().max())
+                          for n, r in ref["params"].items() if mask[n].any()),
+        "buffers": nan_max(float(((got["buffers"][n] - r).abs() / r.abs().clamp(min=1.0)).max())
+                           for n, r in ref["buffers"].items()),
+        "skips": [g["nonfinite_skipped"] for g in got["steps"]],
+    }
+
+
+def within_ae_bars(gaps: dict) -> bool:
+    """Every gap within its bar (a NaN is not), and only the NaN step skipped."""
+    return all(gaps[k] <= bar for k, bar in AE_BARS.items()) and gaps["skips"] == [
+        float(k == AE_NAN_STEP) for k in range(4)]
+
+
+def _bn_stats_detached(x, bn, training):
+    """The decoder's train-mode BatchNorm with its batch statistics cut out
+    of the graph (the running buffers move as the sound one moves them)."""
+    from surfd_tpu_torch.models.layers import batch_norm
+
+    if not training:
+        return batch_norm(x, bn, training)
+    flat = x.reshape(-1, x.shape[-1])
+    mean = flat.mean(0).detach()
+    var = torch.clamp(flat.square().mean(0) - mean.square(), min=0.0).detach()
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
+    return (x - mean) * torch.rsqrt(var + bn.eps)
+
+
+@contextlib.contextmanager
+def planted_ae_fault(name: str):
+    """One of AE_FAULTS in place for the block, undone after it."""
+    from unittest import mock
+
+    from surfd_tpu_torch.models import decoder, dgcnn, layers
+    from surfd_tpu_torch.training import ae_trainer
+    from surfd_tpu_torch.utils import use_full_f32
+
+    def momentum_09(x, bn, training):  # torch's 0.1 read as flax's 0.9
+        bn.momentum = 0.9
+        return layers.batch_norm(x, bn, training)
+
+    with contextlib.ExitStack() as undo:
+        undo.callback(use_full_f32)
+        if name == "TF32 on":
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        elif name == "coordinate gradient without create_graph":  # the grad loss trains nothing
+            undo.enter_context(mock.patch.object(
+                ae_trainer, "coords_gradient",
+                lambda u, c: torch.autograd.grad(u, c, torch.ones_like(u), retain_graph=True)[0]))
+        elif name == "batch statistics detached in the decoder":
+            undo.enter_context(mock.patch.object(decoder, "batch_norm", _bn_stats_detached))
+        elif name == "momentum 0.9 on the batch's side":
+            for mod in (decoder, dgcnn):
+                undo.enter_context(mock.patch.object(mod, "batch_norm", momentum_09))
+        elif name == "BatchNorm buffers kept after a skipped step":
+            undo.enter_context(mock.patch.object(ae_trainer, "snapshot_buffers",
+                                                 lambda model: []))
+        else:
+            raise ValueError(name)
+        yield
+
+
+def ae_init() -> dict:
+    """The AutoEncoder at the preset's widths, initialised as the JAX
+    package's init_ae initialises it, from seed 12: its state dict."""
+    from surfd_tpu_torch.training import AETrainConfig, init_ae
+
+    cfg = AETrainConfig(latent_size=AE_LATENT, hidden_dim=AE_HIDDEN, num_hidden_layers=AE_LAYERS)
+    return init_ae(cfg, torch.Generator().manual_seed(12)).state_dict()
+
+
+def ae_reference() -> dict:
+    """The port's CPU run of ae_run from ae_init() (kept as ref["init"] for
+    the card's runs), outside the counted paths."""
+    init = ae_init()
+    t0 = time.perf_counter()
+    ref = ae_run(torch.device("cpu"), init)
+    ref["s"] = time.perf_counter() - t0
+    ref["init"] = init
+    return ref
+
+
+def param_mesh(fn, nu: int, nv: int, wrap_u: bool, wrap_v: bool):
+    """A triangle mesh of the surface fn(u, v) -> (..., 3) over a nu x nv
+    grid of [0, 1]^2, closed along u and / or v where wrapped."""
+    from surfd_tpu_torch.geometry import Mesh
+
+    u = np.linspace(0, 1, nu, endpoint=not wrap_u)
+    v = np.linspace(0, 1, nv, endpoint=not wrap_v)
+    U, V = np.meshgrid(u, v, indexing="ij")
+    I, J = np.meshgrid(np.arange(nu if wrap_u else nu - 1), np.arange(nv if wrap_v else nv - 1),
+                       indexing="ij")
+    a, b = I * nv + J, (I + 1) % nu * nv + J
+    c, d = (I + 1) % nu * nv + (J + 1) % nv, I * nv + (J + 1) % nv
+    faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                            np.stack([a, c, d], -1).reshape(-1, 3)])
+    return Mesh(fn(U, V).reshape(-1, 3).astype(np.float32), faces.astype(np.int64))
+
+
+def write_ae_meshes(root: str, dev) -> None:
+    """root/train: 12 OBJ meshes, open and closed: the sheet fixture's 128^3
+    extraction (on the card), spheres, a bowl, tori, open cylinders and wavy
+    sheets at several sizes; root/test: a torus and a cylinder."""
+    from surfd_tpu_torch.geometry import write_obj
+    from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf, make_udf_fn
+
+    tau = 2 * np.pi
+
+    def sphere(r, top=1.0):  # top < 1: an open bowl
+        return param_mesh(lambda U, V: np.stack([
+            r * np.sin(np.pi * top * V) * np.cos(tau * U), r * np.sin(np.pi * top * V)
+            * np.sin(tau * U), r * np.cos(np.pi * top * V)], -1), 64, 33, True, False)
+
+    def torus(R, r):
+        return param_mesh(lambda U, V: np.stack([
+            (R + r * np.cos(tau * V)) * np.cos(tau * U), (R + r * np.cos(tau * V))
+            * np.sin(tau * U), r * np.sin(tau * V)], -1), 96, 32, True, True)
+
+    def cylinder(r, h):
+        return param_mesh(lambda U, V: np.stack([
+            r * np.cos(tau * U), r * np.sin(tau * U), h * (V - 0.5)], -1), 96, 24, True, False)
+
+    def wavy(a, f):
+        return param_mesh(lambda U, V: np.stack([
+            2 * U - 1, 2 * V - 1, a * np.sin(f * tau * U) * np.cos(f * tau * V)], -1),
+            64, 64, False, False)
+
+    dec, fx = load_fixture_decoder(dev)
+    sheet = get_mesh_from_udf(make_udf_fn(dec, None, torch.from_numpy(fx["latent"]),
+                                          fx["max_dist"], device=dev),
+                              MeshExtractionConfig(resolution=128, surface_bias="auto"))
+    splits = {
+        "train": {"sheet_128": sheet, "sphere_a": sphere(0.5), "sphere_b": sphere(0.8),
+                  "bowl": sphere(0.6, 0.6), "torus_a": torus(0.6, 0.2),
+                  "torus_b": torus(0.5, 0.3), "torus_c": torus(0.7, 0.1),
+                  "cylinder_a": cylinder(0.5, 1.0), "cylinder_b": cylinder(0.3, 1.5),
+                  "cylinder_c": cylinder(0.7, 0.6), "wavy_a": wavy(0.2, 1.0),
+                  "wavy_b": wavy(0.1, 2.0)},
+        "test": {"torus_t": torus(0.55, 0.25), "cylinder_t": cylinder(0.4, 1.2)},
+    }
+    for split, meshes in splits.items():
+        os.makedirs(os.path.join(root, split))
+        for name, mesh in meshes.items():
+            write_obj(os.path.join(root, split, f"{name}.obj"), mesh)
+
+
+def time_ae_steps(dev, init: dict) -> dict:
+    """The AE step at the preset's batch (AE_B x 10,000 cloud points x AE_Q
+    queries) from `init`: AE_TIMED steps on the host clock after 2 of
+    warm-up, with the peak memory allocated; then 5 more under
+    torch.profiler (device busy share, kernels a step, the top kernels). No
+    hand-written kernel runs in it (K1 is the folded eval decoder of
+    extraction; the step runs the unfolded one), and no plain version."""
+    from surfd_tpu_torch.training import (
+        AutoEncoder,
+        create_train_state,
+        make_ae_train_step,
+        make_optimizer,
+    )
+
+    ae = AutoEncoder(AE_LATENT, AE_HIDDEN, AE_LAYERS, k=RECON_K)
+    ae.load_state_dict(init, strict=True)
+    ae.to(dev)
+    state = create_train_state(ae, make_optimizer(ae.parameters(), 1e-4))
+    step = make_ae_train_step(ae, max_dist=0.1, grad_loss_weight=0.1)
+    batches = ae_batches(AE_B, AE_Q, 2, seed=41)
+
+    def run(n):
+        for k in range(n):
+            m = step(state, batches[k % 2])
+        return m
+
+    run(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = run(AE_TIMED)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / AE_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    wall_us, busy_us = _profiled(f"ae step, B {AE_B} x {AE_Q} queries, 5 steps",
+                                 lambda: run(5), steps=5)
+    busy = None if busy_us is None else busy_us / wall_us
+    log(f"[ae] step at B {AE_B} x {RECON_POINTS} cloud points x {AE_Q} queries: {ms:.2f} ms a "
+        f"step over {AE_TIMED} steps, peak memory allocated {peak / 2**30:.3f} GiB, device busy "
+        + ("not measured" if busy is None else f"{100 * busy:.1f} %")
+        + f"; last loss {float(m['loss']):.5f}")
+    return {"ms_per_step": ms, "peak_bytes": peak, "busy_share": busy,
+            "device_ms_per_step": None if busy_us is None else busy_us / 5e3}
+
+
+def phase_ae(dev, ref):
+    """AE training at the deepfashion3d preset: (a) 4 steps (one skipped on a
+    NaN cloud) on the card against the port's CPU run (`ref`:
+    ae_reference()) from the same JAX-scheme init and batches at B 2 x 4,096
+    queries; each of AE_FAULTS must fail its bar; (b) the step timed and
+    profiled at B 8 x 20,000 queries; (c) the CLI chain in subprocesses:
+    preprocess_udfs on 14 numpy-written meshes at its defaults, train_ae
+    --config deepfashion3d --curriculum for 6 epochs, then --resume to 10,
+    then export_meshes reading the run (its K1 launches count here)."""
+    from surfd_tpu_torch.ops import kernel_calls
+    from surfd_tpu_torch.utils import Checkpointer
+    from surfd_tpu_torch.utils.convert import (
+        decoder_state_from_flax,
+        dgcnn_state_from_flax,
+        load_flax_npz,
+    )
+
+    out = {"cpu_reference_s": ref["s"]}
+    calls = kernel_calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ae_run(dev, ref["init"])
+    torch.cuda.synchronize()
+    out["card_s"] = time.perf_counter() - t0
+    # the step runs the unfolded decoder, not K1 (nor its plain version)
+    if kernel_calls() != calls:
+        raise RuntimeError(f"ae: the train step called a kernel: {kernel_calls()} vs {calls}")
+    gaps = out["sound"] = ae_gaps(got, ref)
+    log(f"[ae] card vs CPU, 4 steps (step {AE_NAN_STEP + 1} a NaN cloud) at B {AE_CHECK_B} x "
+        f"{RECON_POINTS} points x {AE_CHECK_Q} queries ({out['card_s']:.2f}s, CPU "
+        f"{ref['s']:.2f}s): "
+        f"losses {[s['loss'] for s in got['steps']]} vs {[s['loss'] for s in ref['steps']]}; "
+        f"gaps {json.dumps(gaps)} (bars {json.dumps(AE_BARS)})")
+    faults = {}
+    for name, key in AE_FAULTS.items():
+        with planted_ae_fault(name):
+            f = faults[name] = ae_gaps(ae_run(dev, ref["init"]), ref)
+        log(f"[ae] planted fault, {name}: " + json.dumps(f))
+    out["faults"] = faults
+    passed = [name for name, key in AE_FAULTS.items() if faults[name][key] <= AE_BARS[key]]
+    if passed:
+        raise RuntimeError(f"ae: the bars pass planted faults: {passed}")
+    if not within_ae_bars(gaps):
+        raise RuntimeError("ae: the card's train step is off the CPU run's bars")
+    log(f"[ae] (a) with the faults: {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    out["timed"] = time_ae_steps(dev, ref["init"])
+    if kernel_calls() != calls:
+        raise RuntimeError(f"ae: the timed steps called a kernel: {kernel_calls()}")
+    torch.cuda.empty_cache()  # the step's ~44 GiB go back to the card for the CLIs
+    log(f"[ae] (b): {time.perf_counter() - t0:.1f}s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        meshes, data, run = (os.path.join(tmp, d) for d in ("meshes", "data", "run"))
+        write_ae_meshes(meshes, dev)
+        out["meshes_s"] = time.perf_counter() - t0
+        walls = {}
+        for split in ("train", "test"):
+            walls[f"preprocess_{split}"], _, _ = run_cli("preprocess_udfs", [
+                "--mesh_root", os.path.join(meshes, split), "--out_root", data,
+                "--split", split], "ae")
+        argv = ["--config", "deepfashion3d", "--data_root", data, "--save_dir", run,
+                "--curriculum", "--curriculum_init", "8", "--curriculum_add", "1",
+                "--val_every", "2", "--log_interval", "1"]
+        sizes, steps = [], []
+        for label, extra in (("train_ae", ["--num_epochs", "6"]),
+                             ("train_ae_resume", ["--num_epochs", "10", "--resume"])):
+            walls[label], lines, launches = run_cli("train_ae", argv + extra, "ae")
+            if any(launches.values()):
+                raise RuntimeError(f"train_ae launched kernels: {launches}")
+            with open(os.path.join(run, "training_idxes.txt")) as f:
+                sizes.append(len(f.read().split()))
+            steps.append(Checkpointer(os.path.join(run, "ckpt")).latest_step())
+            if "--resume" in extra and not any(f"resumed at step {steps[0]}, epoch 6" in x
+                                               for x in lines):
+                raise RuntimeError("train_ae --resume did not resume at epoch 6")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            rows = [json.loads(x) for x in f]
+        losses = [r["loss"] for r in rows if "loss" in r]
+        # curriculum 8 items, one more every 2 epochs: 11 after 6 epochs, 12 after 10;
+        # one step an epoch (11 // 8 = 1), 6 then 4
+        if sizes != [11, 12] or steps != [6, 10] or len(losses) != 10 or not all(
+                np.isfinite(losses)):
+            raise RuntimeError(f"train_ae: curriculum {sizes}, steps {steps}, losses {losses}")
+        # the npz pair equals the run's last checkpoint
+        ckpt = Checkpointer(os.path.join(run, "ckpt")).read()["model"]
+        enc = dgcnn_state_from_flax(load_flax_npz(os.path.join(run, "ae_encoder.npz")))
+        dec = decoder_state_from_flax(load_flax_npz(os.path.join(run, "ae_decoder.npz")))
+        pairs = [(f"encoder.{k}", v) for k, v in enc.items()] + list(dec.items())
+        bad = [k for k, v in pairs if not k.endswith("num_batches_tracked")
+               and not torch.equal(ckpt[k], v)]
+        if bad or len(pairs) != len(ckpt):
+            raise RuntimeError(f"train_ae: the npz pair differs from the checkpoint at {bad}")
+        recon = os.path.join(tmp, "recon")
+        walls["export_meshes"], _, launches = run_cli("export_meshes", [
+            "--config", "deepfashion3d", "--data_root", data, "--ae_dir", run,
+            "--output_dir", recon, "--resolution", "128"], "ae")
+        if not launches["folded_mlp_f32"]:
+            raise RuntimeError(f"export_meshes: kernel launches {launches}")
+        with open(os.path.join(recon, "recon_metrics.json")) as f:
+            summary = json.load(f)
+        out.update(cli_s=walls, curriculum=sizes, steps=steps, losses=losses,
+                   recon={k: summary[k] for k in ("n", "n_empty", "mean_chamfer",
+                                                  "mean_f_score@0.01")},
+                   recon_rows=[{k: r.get(k) for k in ("id", "faces", "chamfer", "f_score@0.01")}
+                               for r in summary["per_item"]])
+        log(f"[ae] meshes {out['meshes_s']:.1f}s; CLI walls {json.dumps(walls)}; curriculum "
+            f"{sizes}, steps {steps}; losses {losses}; export_meshes at 128^3 after 10 steps "
+            f"from scratch: {json.dumps(out['recon'])}, rows {json.dumps(out['recon_rows'])}")
+    counts = launch_counts()
+    if not counts["folded_mlp_f32"]:
+        raise RuntimeError(f"ae: launches {counts}; want K1 f32 through export_meshes")
+    return out
+
+
 def phase_parity(dev):
     """The sheet fixture at 128^3 (not part of the default run): the card's
     mesh against the port's own CPU mesh (faces within 1 %, symmetric mean
@@ -1913,11 +2367,14 @@ def main() -> int:
         train_ref = train_reference()
         log(f"[train] CPU reference, 3 steps ({torch.get_num_threads()} threads): "
             f"{train_ref['s']:.2f}s")
+    if "ae" in phases:  # the CPU reference of the AE steps
+        ae_ref = ae_reference()
+        log(f"[ae] CPU reference, 4 steps ({torch.get_num_threads()} threads): {ae_ref['s']:.2f}s")
     paths = {"sample": lambda: phase_sample(dev), "extract": lambda: phase_extract(dev),
              "generate": lambda: phase_generate(dev, cfg_ref),
              "recon": lambda: phase_recon(dev, enc_ref),
              "condition": lambda: phase_condition(dev, cond_ref),
-             "train": lambda: phase_train(dev, train_ref)}
+             "train": lambda: phase_train(dev, train_ref), "ae": lambda: phase_ae(dev, ae_ref)}
     by_path = {}
     for name in MAIN_PATH:
         if name not in phases:

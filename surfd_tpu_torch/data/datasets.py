@@ -1,4 +1,4 @@
-"""UDF datasets and the diffusion batch iterators (counterpart of
+"""UDF datasets and the AE and diffusion batch iterators (counterpart of
 surfd_tpu/data/datasets.py; numpy, drawing what the JAX package's draw from
 the same `default_rng`).
 
@@ -13,16 +13,32 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
 
-def random_point_sampling(points: np.ndarray, n: int, rng: np.random.Generator) -> np.ndarray:
+def random_rotation_matrix(rng: np.random.Generator) -> np.ndarray:
+    """A uniform random rotation of SO(3), (3, 3) f32, from a normalised
+    normal quaternion (Shoemake)."""
+    q = rng.normal(size=4)
+    q /= np.linalg.norm(q)
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ], dtype=np.float32)
+
+
+def random_point_sampling(points: np.ndarray, n: int, rng: np.random.Generator,
+                          inds: Optional[np.ndarray] = None) -> np.ndarray:
     """n points along axis -2, drawn without replacement unless n exceeds
-    the count."""
-    total = points.shape[-2]
-    return points[..., rng.choice(total, size=n, replace=n > total), :]
+    the count; `inds` replays given indices instead (no draw)."""
+    if inds is None:
+        total = points.shape[-2]
+        inds = rng.choice(total, size=n, replace=n > total)
+    return points[..., inds, :]
 
 
 class UdfDataset:
@@ -126,6 +142,54 @@ def _conditioning_payload(dataset: DiffusionDataset, items, encode_text) -> dict
     elif dataset.cond_mode in ("sketch", "img"):
         out["context"] = np.stack([it["context"] for it in items])
     return out
+
+
+def ae_batch_iterator(dataset: UdfDataset, indices_iter_factory: Callable[[], Sequence[int]],
+                      batch_size: int, num_points_pcd: int, num_points_forward: int,
+                      rng: np.random.Generator, augment_rotations: bool = False):
+    """Endless AE batches over passes of `indices_iter_factory()` (the
+    curriculum's sampler, read anew at each pass), the tail short of a batch
+    dropped: per item, `num_points_pcd` of its cloud and `num_points_forward`
+    of its queries with their UDF labels and gradients. Each batch holds
+    'pcd', 'coords', 'udf', 'gradients' and 'indices'.
+
+    `augment_rotations` turns each item's cloud, queries and gradients by one
+    fresh uniform rotation (the labels are invariant). A pass of fewer
+    indices than `batch_size` raises ValueError: it would yield nothing, and
+    the JAX package's iterator loops on it for ever. The JAX signature's
+    unused `max_dist` is left out.
+    """
+    from .curriculum import batched
+
+    while True:
+        indices = list(indices_iter_factory())
+        if len(indices) < batch_size:
+            raise ValueError(f"{len(indices)} items to draw from, fewer than the batch of "
+                             f"{batch_size}: no batch can be made (raise the curriculum's "
+                             "initial size or lower the batch)")
+        for idx_batch in batched(iter(indices), batch_size, drop_last=True):
+            pcds, coords, udfs, grads = [], [], [], []
+            for i in idx_batch:
+                item = dataset[i]
+                pcd = random_point_sampling(item["pcd"], num_points_pcd, rng)
+                cug = np.concatenate(
+                    [item["coords"], item["labels"][:, None], item["gradients"]], axis=-1)
+                sel = random_point_sampling(cug, num_points_forward, rng)
+                c, g = sel[:, :3], sel[:, 4:]
+                if augment_rotations:
+                    rt = random_rotation_matrix(rng).T
+                    pcd, c, g = pcd @ rt, c @ rt, g @ rt
+                pcds.append(pcd)
+                coords.append(c)
+                udfs.append(sel[:, 3])
+                grads.append(g)
+            yield {
+                "pcd": np.stack(pcds),
+                "coords": np.stack(coords),
+                "udf": np.stack(udfs),
+                "gradients": np.stack(grads),
+                "indices": np.asarray(idx_batch, np.int32),
+            }
 
 
 def diffusion_batch_iterator(dataset: DiffusionDataset, batch_size: int, num_points_pcd: int,

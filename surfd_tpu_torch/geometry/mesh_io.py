@@ -1,4 +1,4 @@
-"""Minimal OBJ mesh output."""
+"""Minimal OBJ mesh input and output."""
 
 from __future__ import annotations
 
@@ -22,3 +22,22 @@ def write_obj(path: str, mesh: Mesh) -> None:
             for i in range(0, len(arr), ROWS):
                 block = arr[i:i + ROWS]
                 fh.write((line * len(block)) % tuple(block.ravel().tolist()))
+
+
+def read_obj(path: str) -> Mesh:
+    """The `v` and `f` lines of an OBJ file: vertices f32, faces int64,
+    0-based; polygons are split into fans, `f a/b/c` takes the vertex index,
+    negative indices count from the end."""
+    verts, faces = [], []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+            elif line.startswith("f "):
+                idx = [int(p.split("/")[0]) for p in line.split()[1:]]
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    v = np.asarray(verts, dtype=np.float32)
+    f = np.asarray(faces, dtype=np.int64)
+    return Mesh(v, np.where(f > 0, f - 1, len(v) + f))

@@ -7,10 +7,13 @@ projection is a kernel-size-1 Conv1d weight `(out, in, 1)` — so an upstream
 see `utils/convert.py`). The forward pass is channel-last `(B, N, C)`: each
 projection is a plain matmul over points.
 
-Eval only: normalisation uses the running statistics. On the main path the
-values come from the folded kernel (`ops/decoder_kernel.py`); this module is
-the float32 reference and the graph that torch autograd differentiates for
-the near-band gradients.
+A decoder is built in eval mode: normalisation uses the running statistics.
+On the main path the values come from the folded kernel
+(`ops/decoder_kernel.py`); this module is the float32 reference and the
+graph that torch autograd differentiates for the near-band gradients. In
+train mode (`train_ae`) it normalises by the batch's statistics over all
+points, as flax's BatchNorm does, and moves the running statistics
+(`models.layers.batch_norm`).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from torch import nn
 # NeRF positional encoding [x, sin(f0·x), cos(f0·x), sin(f1·x), ...] → 63,
 # frequencies 2^0..2^9; the folded kernel's encoding is the same function.
 from ..ops.decoder_kernel import posenc_f32 as coords_encode
+from .layers import batch_norm
 
 
 class Conv1x1(nn.Module):
@@ -39,7 +43,8 @@ class Conv1x1(nn.Module):
 
 
 class ConditionalBatchNorm(nn.Module):
-    """Affine-free BatchNorm with latent-conditioned γ/β (running statistics)."""
+    """Affine-free BatchNorm with latent-conditioned γ/β: running statistics
+    in eval mode, the batch's (every point of every item) in train mode."""
 
     def __init__(self, latent_dim: int, features: int):
         super().__init__()
@@ -53,11 +58,7 @@ class ConditionalBatchNorm(nn.Module):
         if cond.dim() == x.dim() - 1:  # (B, D) latent broadcast over points
             gamma = gamma[:, None, :]
             beta = beta[:, None, :]
-        net = F.batch_norm(
-            x.reshape(-1, x.shape[-1]), self.bn.running_mean, self.bn.running_var,
-            training=False, eps=self.bn.eps,
-        ).reshape(x.shape)
-        return gamma * net + beta
+        return gamma * batch_norm(x, self.bn, self.training) + beta
 
     def fold(self, latent: torch.Tensor):
         """(a, c) with cbn(x) = a⊙x + c for one latent (D,)."""

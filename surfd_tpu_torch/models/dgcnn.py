@@ -11,6 +11,9 @@ BatchNorm, LeakyReLU and max over the points.
 Parameters keep the upstream state-dict layout: `conv_1..5.weight` as
 (out, in) and `bn_1..5.*` BatchNorm1d buffers. Matmuls are float32: callers
 on CUDA go through `utils.device.resolve_device`, which turns TF32 off.
+In train mode (`train_ae`) each BatchNorm takes flax's batch statistics
+(`models.layers.batch_norm`); the kNN indices carry no gradient, the
+gathered edge features do.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import batch_norm
 
 WIDTHS = (64, 64, 128, 256)
 
@@ -75,11 +80,10 @@ class Dgcnn(nn.Module):
         self.bn_5 = nn.BatchNorm1d(size_latent, eps=1e-5)
         self.eval()
 
-    @staticmethod
-    def _bn_act(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-        """BatchNorm over every axis but the last, then LeakyReLU 0.2."""
-        y = bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
-        return F.leaky_relu(y, 0.2, inplace=True)
+    def _bn_act(self, bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+        """BatchNorm over every axis but the last (running statistics in eval
+        mode, flax's batch statistics in train mode), then LeakyReLU 0.2."""
+        return F.leaky_relu(batch_norm(x, bn, self.training), 0.2, inplace=True)
 
     def forward(self, x: torch.Tensor, latent_index: torch.Tensor | None = None) -> torch.Tensor:
         indices = knn_indices(x, self.k)

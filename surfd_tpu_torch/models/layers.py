@@ -1,10 +1,12 @@
-"""Shared building blocks of the denoiser (counterpart of surfd_tpu/models/layers.py)."""
+"""Shared building blocks of the denoiser (counterpart of surfd_tpu/models/layers.py),
+and the AE's BatchNorm with flax's semantics."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -38,3 +40,31 @@ class GroupNorm32(nn.GroupNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.float()).to(x.dtype)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, training: bool) -> torch.Tensor:
+    """flax `nn.BatchNorm` over every axis but the last, with `bn`'s eps,
+    affine parameters (when it has them) and running buffers.
+
+    Eval: the running statistics. Train: the batch's mean and its biased
+    variance E[x²] − E[x]² clipped at 0 (flax's `use_fast_variance`), kept
+    in the autograd graph, so that gradients couple the points through them
+    as JAX's do; the running buffers move by `bn.momentum` in torch's
+    convention (0.1 here is flax's momentum 0.9) towards the batch's mean
+    and that same biased variance, where `F.batch_norm(training=True)`
+    would take the unbiased one.
+    """
+    flat = x.reshape(-1, x.shape[-1])
+    if not training:
+        return F.batch_norm(flat, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                            training=False, eps=bn.eps).reshape(x.shape)
+    mean = flat.mean(0)
+    var = torch.clamp(flat.square().mean(0) - mean.square(), min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
+    mul = torch.rsqrt(var + bn.eps)
+    if bn.weight is not None:
+        mul = mul * bn.weight
+    y = (x - mean) * mul
+    return y if bn.bias is None else y + bn.bias

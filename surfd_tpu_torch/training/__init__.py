@@ -1,3 +1,11 @@
+from .ae_trainer import (
+    AETrainConfig,
+    AutoEncoder,
+    curriculum_validate,
+    init_ae,
+    make_ae_eval_step,
+    make_ae_train_step,
+)
 from .common import (
     GracefulShutdown,
     StallWatchdog,
@@ -7,12 +15,16 @@ from .common import (
     ema_update,
     global_norm,
     make_optimizer,
+    snapshot_buffers,
     staircase_lr,
 )
 from .diffusion_trainer import DiffusionTrainConfig, DiffusionTrainer, make_train_step
 
 __all__ = [
+    "AETrainConfig", "AutoEncoder", "curriculum_validate", "init_ae", "make_ae_eval_step",
+    "make_ae_train_step",
     "GracefulShutdown", "StallWatchdog", "TrainState", "apply_update_if_finite",
-    "create_train_state", "ema_update", "global_norm", "make_optimizer", "staircase_lr",
+    "create_train_state", "ema_update", "global_norm", "make_optimizer", "snapshot_buffers",
+    "staircase_lr",
     "DiffusionTrainConfig", "DiffusionTrainer", "make_train_step",
 ]

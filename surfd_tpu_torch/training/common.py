@@ -7,6 +7,10 @@ PyTorch updates in place, so where the JAX package returns a new state
 update: when the loss or the gradient norm is not finite it applies nothing
 (params, optimizer state and its count, EMA stay), and only the step
 counter advances. The decision reads two device scalars: one host sync a step.
+A train-mode forward has already moved the BatchNorm running statistics by
+then, so a step with BatchNorm takes `snapshot_buffers` before its forward
+and hands it over, and a skip puts them back, as JAX carries its old
+`batch_stats` forward.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import threading
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -86,6 +91,13 @@ def ema_update(ema: list, params, rate: float) -> None:
     torch._foreach_add_(ema, params, alpha=1.0 - rate)
 
 
+def on_device(x, device, dtype=None) -> torch.Tensor:
+    """A tensor on `device`; arrays are copied (they may be read-only views)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
 @torch.no_grad()
 def global_norm(tensors) -> torch.Tensor:
     """sqrt(Σ ‖x‖²) over tensors, a 0-d f32 tensor on their device."""
@@ -94,12 +106,21 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_update_if_finite(state: TrainState, loss: torch.Tensor) -> tuple[bool, torch.Tensor]:
+def snapshot_buffers(model: nn.Module) -> list:
+    """(buffer, copy) pairs of the model's floating-point buffers (the
+    BatchNorm running statistics), taken before a forward moves them."""
+    return [(b, b.clone()) for b in model.buffers() if b.is_floating_point()]
+
+
+@torch.no_grad()
+def apply_update_if_finite(state: TrainState, loss: torch.Tensor,
+                           buffers: Optional[list] = None) -> tuple[bool, torch.Tensor]:
     """After `loss.backward()`: when the loss and the gradients' global norm
     are finite, one AdamW update at the annealed lr and the EMA at the
-    state's rate; else
-    nothing. The step counter advances either way and the gradients are
-    cleared. Returns (applied, gradient norm)."""
+    state's rate; else nothing, and each of `buffers` (`snapshot_buffers`
+    from before the forward) back to its copy. The step counter advances
+    either way and the gradients are cleared. Returns (applied, gradient
+    norm)."""
     params = [p for p in state.model.parameters() if p.grad is not None]
     gnorm = global_norm([p.grad for p in params])
     ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))  # the step's one host sync
@@ -110,6 +131,9 @@ def apply_update_if_finite(state: TrainState, loss: torch.Tensor) -> tuple[bool,
         state.count += 1
         if state.ema is not None:
             ema_update(state.ema, state.model.parameters(), state.ema_rate)
+    else:
+        for live, saved in buffers or ():
+            live.copy_(saved)
     state.optimizer.zero_grad(set_to_none=True)
     state.step += 1
     return ok, gnorm

@@ -28,7 +28,14 @@ from ..diffusion import LossType, MeanType, Schedule, VarType, training_losses
 from ..diffusion.resample import create_named_schedule_sampler
 from ..models.mdm import MDM
 from ..models.unet1d import SeededDropout
-from .common import GracefulShutdown, StallWatchdog, TrainState, apply_update_if_finite, global_norm
+from .common import (
+    GracefulShutdown,
+    StallWatchdog,
+    TrainState,
+    apply_update_if_finite,
+    global_norm,
+    on_device,
+)
 
 
 @dataclass
@@ -50,22 +57,15 @@ class DiffusionTrainConfig:
     stall_exit_s: float = 480.0
 
 
-def _on(x, device, dtype=None) -> torch.Tensor:
-    """A tensor on `device`; arrays are copied (they may be read-only views)."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype)
-    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
-
-
 def batch_to_device(batch: dict, device) -> dict:
     """A batch's arrays as tensors on `device`: latents, pcd and context
     f32, action int64."""
     out = {}
     for k, v in batch.items():
         if k in ("latents", "pcd", "context"):
-            out[k] = _on(v, device, torch.float32)
+            out[k] = on_device(v, device, torch.float32)
         elif k == "action":
-            out[k] = _on(v, device, torch.int64)
+            out[k] = on_device(v, device, torch.int64)
     return out
 
 
@@ -93,8 +93,8 @@ def make_train_step(
 
     def loss_fn(batch, t, weights, *, noise=None, cond_drop=None, generator=None):
         batch = batch_to_device(batch, device)
-        t = _on(t, device, torch.int64)
-        weights = _on(weights, device, torch.float32)
+        t = on_device(t, device, torch.int64)
+        weights = on_device(weights, device, torch.float32)
         if "latents" in batch:
             latents = batch["latents"]
         else:
@@ -105,13 +105,13 @@ def make_train_step(
         if cond_mask_prob > 0.0:
             if cond_drop is None:
                 cond_drop = torch.rand(x0.shape[0], generator=generator, device=device) < cond_mask_prob
-            cond_drop = _on(cond_drop, device, torch.bool)
+            cond_drop = on_device(cond_drop, device, torch.bool)
             if context is not None:
                 context = torch.where(cond_drop[:, None], 0.0, context)
             if action is not None:
                 action = torch.where(cond_drop, mdm.null_action, action)
         if noise is not None:
-            noise = _on(noise, device, torch.float32)
+            noise = on_device(noise, device, torch.float32)
         mdm.train(mdm.dropout > 0.0)
         for m in dropouts:
             m.generator = generator

@@ -2,12 +2,14 @@
 surfd_tpu/utils/checkpoint.py, which writes Orbax directories).
 
 One file per step, `<directory>/step_<step:09d>.pt`: a dict of `step`,
-`count` (updates applied), `model` (the MDM's state dict, upstream `Unet.*`
-keys, so `MDM.load_state_dict` reads it unchanged), `ema` (the same layout,
-or None) and `optimizer` (AdamW's state dict, the anneal's settings in its
-groups). A write goes to a temporary file first and is renamed into place,
-so a reader sees a whole checkpoint or none. Saves are synchronous; `wait`
-and `close` exist for the loops' and the CLI's sake.
+`count` (updates applied), `model` (the model's state dict: the MDM's with
+upstream `Unet.*` keys, so `MDM.load_state_dict` reads it unchanged, or the
+AE's, BatchNorm buffers included), `ema` (the same layout, or None),
+`optimizer` (AdamW's state dict, the anneal's settings in its groups) and
+`extra` (the loop's own counters, e.g. `train_ae`'s epoch). A write goes to a
+temporary file first and is renamed into place, so a reader sees a whole
+checkpoint or none. Saves are synchronous; `wait` and `close` exist for the
+loops' and the CLI's sake.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import re
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 _NAME = re.compile(r"^step_(\d{9,})\.pt$")
@@ -39,16 +42,17 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state, force: bool = False) -> bool:
-        """Write `state` (a training.TrainState) as `step`; a step already on
-        disk is kept unless `force`. Keeps the newest `max_to_keep` steps."""
+    def save(self, step: int, state, force: bool = False, extra: Optional[dict] = None) -> bool:
+        """Write `state` (a training.TrainState) and `extra` as `step`; a step
+        already on disk is kept unless `force`. Keeps the newest
+        `max_to_keep` steps."""
         path = self.path(step)
         if path.exists() and not force:
             return False
         payload = {
             "step": int(state.step), "count": int(state.count),
             "model": state.model.state_dict(), "ema": state.ema_state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "optimizer": state.optimizer.state_dict(), "extra": dict(extra or {}),
         }
         tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
         torch.save(payload, tmp)
@@ -83,3 +87,22 @@ class Checkpointer:
 
     def close(self) -> None:
         """Nothing to release."""
+
+
+def save_params_npz(path: str, tree: dict) -> None:
+    """A nested dict of arrays as the JAX package's flat npz: one f32 entry
+    per leaf under its '/'-joined key path (`params/fc_p/kernel`). A dict
+    whose keys are already flat (`utils.convert.*_flat_from_state`) is
+    written as it is. JAX's `load_params_npz` and the port's `load_flax_npz`
+    read it."""
+    out: dict = {}
+
+    def walk(node, prefix):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, f"{prefix}{key}/")
+            else:
+                out[f"{prefix}{key}"] = np.asarray(val, np.float32)
+
+    walk(tree, "")
+    np.savez(path, **out)

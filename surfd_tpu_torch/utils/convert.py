@@ -1,5 +1,7 @@
 """Weight bridge: Flax variables (nested dicts of numpy arrays) → the port's
-state dicts, in the upstream Surf-D layout.
+state dicts, in the upstream Surf-D layout, and back to the JAX package's
+flat-key npz layout for the AE (`decoder_flat_from_state`,
+`dgcnn_flat_from_state`) and CLIP (`clip_flat_from_state`).
 
 Layout rules (the inverse of the JAX package's torch converters):
   Flax Dense kernel (in, out)        → Linear weight (out, in):        K.T
@@ -97,6 +99,55 @@ def dgcnn_state_from_flax(variables) -> StateDict:
         sd[f"bn_{i}.bias"] = _t(bn["bias"])
         _bn_stats(sd, f"bn_{i}", stats[f"{name}_bn"])
     return sd
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def decoder_flat_from_state(sd: StateDict) -> Dict[str, np.ndarray]:
+    """A `decoder.*` state dict → CbnDecoder's variables as the JAX package's
+    flat-key npz (`ae_decoder.npz`: `params/...`, `batch_stats/...`), numpy
+    f32; the inverse of `decoder_state_from_flax` (`num_batches_tracked`,
+    which flax does not keep, is dropped). Other keys are ignored."""
+    out: Dict[str, np.ndarray] = {}
+
+    def conv1x1(name, prefix):
+        out[f"params/{name}/kernel"] = _np(sd[f"{prefix}.weight"])[:, :, 0].T
+        out[f"params/{name}/bias"] = _np(sd[f"{prefix}.bias"])
+
+    def cbn(name, prefix):
+        conv1x1(f"{name}/gamma", f"{prefix}.conv_gamma")
+        conv1x1(f"{name}/beta", f"{prefix}.conv_beta")
+        out[f"batch_stats/{name}/bn/mean"] = _np(sd[f"{prefix}.bn.running_mean"])
+        out[f"batch_stats/{name}/bn/var"] = _np(sd[f"{prefix}.bn.running_var"])
+
+    conv1x1("fc_p", "decoder.fc_p")
+    conv1x1("fc_out", "decoder.fc_out")
+    i = 0
+    while f"decoder.blocks.{i}.fc_0.weight" in sd:
+        b = f"decoder.blocks.{i}"
+        cbn(f"block_{i}/bn_0", f"{b}.bn_0")
+        cbn(f"block_{i}/bn_1", f"{b}.bn_1")
+        conv1x1(f"block_{i}/fc_0", f"{b}.fc_0")
+        conv1x1(f"block_{i}/fc_1", f"{b}.fc_1")
+        i += 1
+    cbn("bn_out", "decoder.bn")
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in out.items()}
+
+
+def dgcnn_flat_from_state(sd: StateDict) -> Dict[str, np.ndarray]:
+    """The encoder's state dict (`conv_1..5`, `bn_1..5`) → Dgcnn's variables
+    as the JAX package's flat-key npz (`ae_encoder.npz`), numpy f32; the
+    inverse of `dgcnn_state_from_flax`."""
+    out: Dict[str, np.ndarray] = {}
+    for i, name in enumerate([f"block{j}" for j in range(1, 5)] + ["head"], 1):
+        out[f"params/{name}_conv/kernel"] = _np(sd[f"conv_{i}.weight"]).T
+        out[f"params/{name}_bn/scale"] = _np(sd[f"bn_{i}.weight"])
+        out[f"params/{name}_bn/bias"] = _np(sd[f"bn_{i}.bias"])
+        out[f"batch_stats/{name}_bn/mean"] = _np(sd[f"bn_{i}.running_mean"])
+        out[f"batch_stats/{name}_bn/var"] = _np(sd[f"bn_{i}.running_var"])
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in out.items()}
 
 
 def strip_prefix(sd: StateDict, prefix: str) -> StateDict:

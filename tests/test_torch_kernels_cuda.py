@@ -455,3 +455,50 @@ def test_mdm_backward_gap_by_attention(cuda, attention, monkeypatch):
     print(f"\n[gap] attention {attention}: worst tensor {worst} {rel[worst]:.3e} of its max |g|; "
           f"global {max(gaps.values()) / top:.3e} of the global max |g| ({max(gaps, key=gaps.get)})")
     assert rel[worst] <= 1e-4, worst
+
+
+@pytest.mark.cuda
+def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
+    """The AE step on the card (a small AutoEncoder, B 2): a NaN cloud is
+    skipped, and the params, AdamW's moments and every BatchNorm running
+    buffer, which the train-mode forward moved on the card, are as before;
+    a good batch then moves them. No hand-written kernel launches."""
+    from surfd_tpu_torch.ops import kernel_calls
+    from surfd_tpu_torch.training import (
+        AETrainConfig,
+        create_train_state,
+        init_ae,
+        make_ae_train_step,
+        make_optimizer,
+    )
+
+    ae = init_ae(AETrainConfig(latent_size=8, hidden_dim=64, num_hidden_layers=2),
+                 torch.Generator().manual_seed(0)).to(cuda)
+    state = create_train_state(ae, make_optimizer(ae.parameters(), 1e-4))
+    step = make_ae_train_step(ae)
+    rng = np.random.default_rng(0)
+
+    def batch():
+        return {"pcd": rng.uniform(-0.5, 0.5, (2, 256, 3)).astype(np.float32),
+                "coords": rng.uniform(-1, 1, (2, 512, 3)).astype(np.float32),
+                "udf": rng.uniform(0, 0.1, (2, 512)).astype(np.float32),
+                "gradients": rng.normal(size=(2, 512, 3)).astype(np.float32)}
+
+    launches = sum(kernel_calls()["launches"].values())
+    assert step(state, batch())["nonfinite_skipped"] == 0.0
+    bad = batch()
+    bad["pcd"][0, 5] = np.nan
+    before = {k: v.clone() for k, v in ae.state_dict().items()}
+    opt = {i: {k: v.clone() for k, v in s.items()}
+           for i, s in state.optimizer.state_dict()["state"].items()}
+    assert step(state, bad)["nonfinite_skipped"] == 1.0
+    assert (state.step, state.count) == (2, 1)
+    for k, v in ae.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    for i, s in state.optimizer.state_dict()["state"].items():
+        for k, v in s.items():
+            assert torch.equal(v, opt[i][k]), (i, k)
+    assert step(state, batch())["nonfinite_skipped"] == 0.0
+    assert not torch.equal(ae.state_dict()["decoder.bn.bn.running_var"],
+                           before["decoder.bn.bn.running_var"])
+    assert sum(kernel_calls()["launches"].values()) == launches
