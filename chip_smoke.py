@@ -30,6 +30,20 @@ Phases, each fatal on failure:
      surface_bias="auto" through get_mesh_from_udf — the JAX package's bars
      (tests/test_e2e_fixture.py), the face count within 1 % of the JAX
      package's, and K1 on the path, no plain version;
+  4b. extraction settings (phase `settings`) on the same fixture: (a) at
+     256^3, the unquantised face filter, no filter (the numpy cleanup) and
+     no cleanup, each beside a default run (stage times; no out-of-domain
+     vertex or face explosion; the unquantised run within 1 % of the
+     default's faces and 0.1 voxel of mean NN), and filter_faces_by_udf
+     keeping the unquantised fused filter's faces on one unfiltered mesh;
+     (b) the two-tier filter engaged at 32^3 (or the largest R below where
+     the calibrated band is under a quarter of the threshold): K1 bf16
+     launched, ff_unsure, the mesh bit-equal to the single-tier run's; (c)
+     at 128^3, one dense autograd gradient grid read as int8 units: numpy
+     marching equal to the native passes, and those to native marching on
+     the lazy int8 gradients by grid id (equal faces, Hausdorff < 1e-5);
+     (d) the analytic sphere and torus as torch callables on the card,
+     RMS Chamfer < 0.5 voxel and Hausdorff < 1.5 voxel to the surface;
   5. generation at the JAX package's breadth: category CFG sampling with
      the full-width category MDM, guidance 2.5, B = 2 (K2 at B 4), ddim50 —
      DDIM at eta 0 twice (bit-equal), against the port's own CPU run on the
@@ -95,8 +109,9 @@ Phases, each fatal on failure:
      (DDIM, guidance 2.5, two extractions at a time) and generate_uncond
      (PLMS, watertight).
 
-Phases 3-9 are the main path: each runs with the launch counts set to 0
-just before it and read just after, and no plain version may run in them.
+Phases 3-9 and 4b are the main path: each runs with the launch counts set
+to 0 just before it and read just after, and no plain version may run in
+them.
 
 Not in the default run: `--phases build,profile` (where the time goes, and
 device kernels per DDPM step), `--phases build,bars` (the readings behind
@@ -129,10 +144,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "surfd_tpu", "assets", "bench_sheet_decoder.npz")
-PHASES = ("build", "kernels", "sample", "extract", "generate", "recon", "condition", "train",
-          "ae", "host", "cli")  # default
+PHASES = ("build", "kernels", "sample", "extract", "settings", "generate", "recon", "condition",
+          "train", "ae", "host", "cli")  # default
 # counted: launches, no plain version
-MAIN_PATH = ("sample", "extract", "generate", "recon", "condition", "train", "ae")
+MAIN_PATH = ("sample", "extract", "settings", "generate", "recon", "condition", "train", "ae")
 EXTRA_PHASES = ("profile", "bars", "parity")
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type.
@@ -884,6 +899,320 @@ def phase_extract(dev):
     return {"extract_s": dt, "chamfer": cd, "faces": len(mesh.faces)}
 
 
+# Phase settings: extraction at the MeshExtractionConfig settings besides the
+# default, on the sheet fixture, and the marching oracles.
+SETTINGS_RUNS = {  # (a): each beside the default run at SETTINGS_R
+    "unquantised": {"quantized_filter_points": False},
+    "no filter": {"filter_faces": False},
+    "no stabilize, no border smoothing": {"do_stabilize": False, "do_smooth_borders": False},
+    # the two below hold filter_faces_by_udf to the program's own unquantised filter
+    "unquantised, no cleanup": {"quantized_filter_points": False, "do_stabilize": False,
+                                "do_smooth_borders": False},
+    "raw": {"filter_faces": False, "do_stabilize": False, "do_smooth_borders": False},
+}
+SETTINGS_R = 256
+TIER_R = 32  # (b): the two-tier filter engages here, else at the largest R below
+ORACLE_R = 128  # (c)
+# (c): numpy against native marching on the raw float32 gradients; faces as a
+# share of native's, Hausdorff in voxels. Set from the card's reading (0.0374 %,
+# 1.98 voxel on the H100): a crossing decided the other way in one cube moves
+# whole triangles, so the Hausdorff distance is of the order of a voxel.
+ORACLE_F32_BARS = {"faces": 1e-3, "hausdorff_voxels": 3.0}
+ANALYTIC_R = 128  # (d)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mean_nn(a, b) -> float:
+    """Symmetric mean nearest-neighbour distance between two vertex sets."""
+    from scipy.spatial import cKDTree
+
+    return 0.5 * float(cKDTree(b).query(a)[0].mean() + cKDTree(a).query(b)[0].mean())
+
+
+def _same_mesh(a, b) -> bool:
+    """Equal vertex sets and equal oriented faces, whatever the order of
+    either."""
+    def canonical(m):
+        order = np.lexsort(m.vertices.T[::-1])
+        rank = np.empty(len(order), np.int64)
+        rank[order] = np.arange(len(order))
+        f = rank[m.faces]
+        r = np.argmin(f, axis=1)[:, None]  # rotate the lowest first, keeping orientation
+        f = np.take_along_axis(f, (r + np.arange(3)) % 3, axis=1)
+        return m.vertices[order], f[np.lexsort(f.T[::-1])]
+
+    (va, fa), (vb, fb) = canonical(a), canonical(b)
+    return np.array_equal(va, vb) and np.array_equal(fa, fb)
+
+
+def _k1_delta(before: dict) -> dict:
+    from surfd_tpu_torch.ops import decoder_kernel as dk
+
+    return {k: dk.folded_udf.launches[k] - before[k] for k in before}
+
+
+def _extract(udf_fn, dev, **kw):
+    """One sheet extraction: (mesh, stats, seconds, K1 launches)."""
+    from surfd_tpu_torch.ops import decoder_kernel as dk
+    from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf
+
+    before = dict(dk.folded_udf.launches)
+    _sync(dev)
+    t0 = time.perf_counter()
+    mesh, stats = get_mesh_from_udf(udf_fn, cfg=MeshExtractionConfig(**kw), return_stats=True)
+    _sync(dev)
+    return mesh, stats, time.perf_counter() - t0, _k1_delta(before)
+
+
+def settings_filters(udf_fn, dev, R: int = SETTINGS_R) -> dict:
+    """(a) The filter settings at R beside the default run: faces, stage
+    times, the output guards; the unquantised run within 1 % of the default's
+    faces and 0.1 voxel of mean NN; filter_faces_by_udf, then the vertex
+    merge, on the raw mesh gives the mesh of the program's unquantised filter
+    without cleanup (its unreferenced vertices aside)."""
+    from surfd_tpu_torch.geometry import merge_duplicate_vertices, remove_unreferenced_vertices
+    from surfd_tpu_torch.pipelines import filter_faces_by_udf, make_field_bias_at
+
+    voxel = 2.0 / (R - 1)
+    base = dict(resolution=R, surface_bias="auto")
+    runs = {"default": _extract(udf_fn, dev, **base)}
+    for name, kw in SETTINGS_RUNS.items():
+        runs[name] = _extract(udf_fn, dev, **base, **kw)
+    ref = runs["default"][0]
+    for name, (mesh, stats, dt, k1) in runs.items():
+        gap = (len(mesh.faces) - len(ref.faces)) / len(ref.faces)
+        log(f"[settings] {R}^3 {name}: {len(mesh.faces)} faces ({100 * gap:+.4f} % of the default), "
+            f"raw {stats['raw_faces']}, oob {stats['oob_vertices']}, face ratio "
+            f"{stats['face_budget_ratio']}, {dt:.2f}s, K1 {k1}, times {json.dumps(stats['times'])}")
+        if stats["oob_vertices"] or stats["face_explosion"]:
+            raise RuntimeError(f"settings {name}: {stats['oob_vertices']} out-of-domain vertices, "
+                               f"face ratio {stats['face_budget_ratio']}")
+    mesh = runs["unquantised"][0]
+    gap = abs(len(mesh.faces) - len(ref.faces)) / len(ref.faces)
+    nn = _mean_nn(mesh.vertices, ref.vertices)
+    log(f"[settings] unquantised vs default: faces {100 * gap:.4f} % apart, mean NN {nn!r} "
+        f"({nn / voxel:.4g} voxel)")
+    if not (gap <= 0.01 and nn <= 0.1 * voxel):
+        raise RuntimeError("settings: the unquantised filter is off the default run's bars")
+
+    # filter_faces_by_udf and the merge on the unfiltered mesh against the
+    # program's unquantised filter without cleanup (same fill, same field):
+    # the per-point bias field where it is non-zero, else the scalar bias
+    raw, stats = runs["raw"][:2]
+    field = stats.get("surface_bias_field")
+    thr = 1.0 / R
+    if field is not None and float(field.max()) > 0:
+        bias_at = make_field_bias_at(field, -1.0, (R // field.shape[0]) * voxel)
+    else:
+        bias_at = None
+        thr += 0.0 if field is not None else float(stats.get("surface_bias") or 0.0)
+    t0 = time.perf_counter()
+    kept = filter_faces_by_udf(raw, udf_fn, thr, chunk=2**19, bias_at=bias_at)
+    kept = merge_duplicate_vertices(remove_unreferenced_vertices(kept))
+    dt = time.perf_counter() - t0
+    # the program's merge may leave a vertex whose faces all collapsed
+    prog = remove_unreferenced_vertices(runs["unquantised, no cleanup"][0])
+    same = _same_mesh(kept, prog)
+    log(f"[settings] filter_faces_by_udf + merge on the {len(raw.faces)}-face raw mesh: "
+        f"{len(kept.faces)} faces, {len(kept.vertices)} vertices, {dt:.2f}s; the program's "
+        f"unquantised filter without cleanup {len(prog.faces)} faces, {len(prog.vertices)} "
+        f"referenced vertices ({'the same mesh' if same else 'DIFFERENT meshes'})")
+    if not same:
+        raise RuntimeError("settings: filter_faces_by_udf and the program's unquantised filter "
+                           "give different meshes")
+    return {name: len(r[0].faces) for name, r in runs.items()}
+
+
+def settings_two_tier(udf_fn, dev) -> dict:
+    """(b) The two-tier filter engaged: the first R from TIER_R down at which
+    the calibrated band is below a quarter of the threshold. K1 bf16 must
+    launch and the mesh must be bit-equal to the single-tier run's. An audit
+    of the tier-1 decisions at the near-raw mesh's filter points prints any
+    sure point whose bf16 decision differs from the f32 one."""
+    from surfd_tpu_torch import native
+    from surfd_tpu_torch.pipelines import BiasTable
+
+    band = udf_fn.two_tier_band()
+    for R in range(TIER_R, 7, -1):
+        two, stats2, dt2, k2 = _extract(udf_fn, dev, resolution=R, surface_bias="auto")
+        if stats2["ff_two_tier"]:
+            break
+        log(f"[settings] two-tier off at {R}^3: band {band!r} >= threshold "
+            f"{stats2['ff_threshold']!r} / 4")
+    else:
+        raise RuntimeError(f"settings: the two-tier filter engages at no R <= {TIER_R}")
+    one, stats1, dt1, k1 = _extract(udf_fn, dev, resolution=R, surface_bias="auto",
+                                    two_tier_filter=False)
+    equal = (np.array_equal(two.vertices, one.vertices) and np.array_equal(two.faces, one.faces))
+    log(f"[settings] two-tier at {R}^3: band {band!r}, threshold {stats2['ff_threshold']!r} "
+        f"(quarter {0.25 * stats2['ff_threshold']!r}), ff_unsure {stats2['ff_unsure']}, "
+        f"{len(two.faces)} faces {dt2:.2f}s K1 {k2}; single-tier {len(one.faces)} faces {dt1:.2f}s "
+        f"K1 {k1}: {'bit-equal' if equal else 'DIFFERENT'}; times {json.dumps(stats2['times'])}")
+    # audit: every point of the filter, tier 1 against f32
+    near, nstats = _extract(udf_fn, dev, resolution=R, surface_bias="auto", filter_faces=False,
+                            do_stabilize=False, do_smooth_borders=False)[:2]
+    qstep = 2.0 / 65535.0
+    qverts = np.clip(np.rint((near.vertices + 1.0) / qstep), 0, 65535).astype(np.uint16)
+    qmids = native.face_filter_prep_q16(near.vertices, near.faces, -1.0, 1.0 / qstep)[0]
+    q = torch.from_numpy(np.concatenate([qverts, qmids]).astype(np.int32)).to(dev)
+    thr = stats2["ff_threshold"]
+    pts = q.to(torch.float32) * qstep - 1.0
+    u16, u32 = udf_fn.udf_bf16(pts), udf_fn(pts)
+    field = nstats.get("surface_bias_field")
+    if field is not None and float(field.max()) > 0:  # the per-point bias, as the filter's
+        b = BiasTable(field, -1.0, (R // field.shape[0]) * 2.0 / (R - 1), dev).at(pts)
+        u16, u32 = u16 - b, u32 - b
+    sure = (u16 - thr).abs() > band
+    wrong = torch.nonzero(sure & ((u16 <= thr) != (u32 <= thr)))[:, 0]
+    log(f"[settings] tier-1 audit at {R}^3: {len(q)} points, {int((~sure).sum())} unsure, "
+        f"max |bf16 - f32| {float((u16 - u32).abs().max())!r}, sure but wrong {len(wrong)}"
+        + "".join(f"; point {int(i)} bf16 {float(u16[i])!r} f32 {float(u32[i])!r}" for i in wrong[:10]))
+    if dev.type == "cuda" and k2["bf16"] == 0:  # the CPU runs the plain versions
+        raise RuntimeError("settings: K1 bf16 never launched in the engaged two-tier run")
+    if not equal:
+        raise RuntimeError(f"settings: the two-tier mesh at {R}^3 differs from the single-tier one")
+    return {"tier_R": R, "ff_unsure": stats2["ff_unsure"], "band": band}
+
+
+def settings_oracles(udf_fn, dev, R: int = ORACLE_R) -> dict:
+    """(c) Marching's oracles on one grid and one dense gradient grid
+    (GridFiller.fill_gradients over make_grad_fn: autograd through the f32
+    decoder).
+      * On the gradients' settled int8 units, which both paths read alike:
+        the numpy path against the native one, and native marching on them
+        against native marching on the lazy int8 gradients by grid id (the
+        default path). Each pair: equal face counts, vertex Hausdorff < 1e-5.
+      * On the raw float32 gradients, where the numpy path decides crossings
+        on f32 dot products and the native one on their int8 rounding: the
+        pair within ORACLE_F32_BARS.
+      * The gradient-vote sign oracle on the same grid and gradients: its
+        faces and its distance to either path, logged.
+    Also logged: how many active-cube corners round to another int8 on the
+    dense and lazy routes."""
+    from surfd_tpu_torch import native
+    from surfd_tpu_torch.geometry import (
+        GridFiller,
+        chamfer_distance,
+        hausdorff_distance,
+        make_grad_fn,
+        marching_tetrahedra_udf,
+        marching_tetrahedra_vote,
+    )
+    from surfd_tpu_torch.geometry.marching import int8_units, settled_int8_units
+
+    voxel = 2.0 / (R - 1)
+    gf = GridFiller(R, max_dist=udf_fn.max_dist, surface_bias="auto", device=dev)
+    t0 = time.perf_counter()
+    grid, stats = gf.fill(udf_fn, return_stats=True)
+    dense = gf.fill_gradients(make_grad_fn(udf_fn), grid)
+    g8 = settled_int8_units(dense)
+    t1 = time.perf_counter()
+    m_np = marching_tetrahedra_udf(grid, g8, use_native=False)
+    t2 = time.perf_counter()
+    m_cc = marching_tetrahedra_udf(grid, g8)
+    t3 = time.perf_counter()
+    lazy = lambda gids: udf_fn.grad_i8_gid(gids, R, -1.0, voxel)
+    lazy.by_gid = True
+    m_lazy = marching_tetrahedra_udf(grid, lazy, active_blocks=(stats["ab"], stats["block"]))
+    t4 = time.perf_counter()
+    f_np = marching_tetrahedra_udf(grid, dense, use_native=False)
+    f_cc = marching_tetrahedra_udf(grid, dense)
+    t5 = time.perf_counter()
+    # the vote wants unit vectors toward the surface
+    toward = -dense / np.maximum(np.linalg.norm(dense, axis=-1, keepdims=True), 1e-12)
+    m_vote = marching_tetrahedra_vote(grid, toward)
+    t6 = time.perf_counter()
+    _, corners = native.mt_active_cubes(grid, 1.74 * voxel, 1.05 * voxel)
+    differ = int((int8_units(dense.reshape(-1, 3)[corners]) != lazy(corners)).any(axis=1).sum())
+    hd_np = hausdorff_distance(m_np.vertices, m_cc.vertices)
+    hd_lazy = hausdorff_distance(m_lazy.vertices, m_cc.vertices)
+    f32_gap = abs(len(f_np.faces) - len(f_cc.faces)) / len(f_cc.faces)
+    hd_f32 = hausdorff_distance(f_np.vertices, f_cc.vertices)
+    log(f"[settings] oracles at {R}^3: dense gradients at {int((np.abs(dense).sum(-1) > 0).sum())} "
+        f"nodes {t1 - t0:.2f}s; on their int8 units numpy marching {len(m_np.faces)} faces "
+        f"{t2 - t1:.2f}s, native {len(m_cc.faces)} {t3 - t2:.2f}s, Hausdorff {hd_np!r}; native on "
+        f"the lazy int8 gradients {len(m_lazy.faces)} faces {t4 - t3:.2f}s, Hausdorff {hd_lazy!r}")
+    log(f"[settings] oracles at {R}^3, float32 gradients: numpy {len(f_np.faces)} faces, native "
+        f"{len(f_cc.faces)} ({100 * f32_gap:.4f} % apart), Hausdorff {hd_f32!r} "
+        f"({hd_f32 / voxel:.4g} voxel), {t5 - t4:.2f}s; {differ} of {len(corners)} corner "
+        f"gradients round to another int8 on the dense and lazy routes")
+    for name, m in (("numpy, float32", f_np), ("native, float32", f_cc)):
+        rms = float(np.sqrt(chamfer_distance(m_vote.vertices, m.vertices) / 2.0))
+        hd = hausdorff_distance(m_vote.vertices, m.vertices)
+        log(f"[settings] vote oracle at {R}^3: {len(m_vote.faces)} faces ({t6 - t5:.2f}s) against "
+            f"{name} {len(m.faces)}: {len(m_vote.faces) - len(m.faces):+d} faces, RMS "
+            f"{rms / voxel:.4g} voxel, Hausdorff {hd / voxel:.4g} voxel")
+    if not (len(m_np.faces) == len(m_cc.faces) and hd_np < 1e-5):
+        raise RuntimeError("settings: numpy marching is off the native marching's bars")
+    if not (len(m_lazy.faces) == len(m_cc.faces) and hd_lazy < 1e-5):
+        raise RuntimeError("settings: marching on the lazy gradients is off the dense run's bars")
+    if not (f32_gap <= ORACLE_F32_BARS["faces"]
+            and hd_f32 <= ORACLE_F32_BARS["hausdorff_voxels"] * voxel):
+        raise RuntimeError("settings: numpy and native marching on float32 gradients are off "
+                           f"{ORACLE_F32_BARS}")
+    return {"oracle_faces": len(m_cc.faces), "int8_differ": differ,
+            "f32_faces": (len(f_np.faces), len(f_cc.faces)), "vote_faces": len(m_vote.faces)}
+
+
+def settings_analytic(dev, R: int = ANALYTIC_R) -> dict:
+    """(d) Plain callables: the analytic sphere and torus as torch fields on
+    the device, through get_mesh_from_udf without grad_fn (autograd
+    gradients, the exact-point filter); RMS Chamfer to the analytic surface
+    < 0.5 voxel, Hausdorff < 1.5 voxel."""
+    from surfd_tpu_torch.geometry import (
+        FIXTURES,
+        TorchField,
+        chamfer_distance,
+        hausdorff_distance,
+    )
+    from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf
+
+    voxel = 2.0 / (R - 1)
+    out = {}
+    for name in ("sphere", "torus"):
+        _sync(dev)
+        t0 = time.perf_counter()
+        mesh, stats = get_mesh_from_udf(TorchField(name, dev), cfg=MeshExtractionConfig(
+            resolution=R), return_stats=True)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        sample = FIXTURES[name](8)[3]
+        true = sample(max(len(mesh.vertices), 10000), np.random.default_rng(0))
+        rms = float(np.sqrt(chamfer_distance(mesh.vertices, true) / 2.0))
+        hd = hausdorff_distance(mesh.vertices, true)
+        log(f"[settings] analytic {name} at {R}^3 as a torch callable on {dev.type}: "
+            f"{len(mesh.faces)} faces, RMS {rms / voxel:.4f} voxel, Hausdorff {hd / voxel:.4f} "
+            f"voxel, {dt:.2f}s, times {json.dumps(stats['times'])}")
+        if not (rms < 0.5 * voxel and hd < 1.5 * voxel):
+            raise RuntimeError(f"settings: the analytic {name} is off the Chamfer bars")
+        out[name] = len(mesh.faces)
+    return out
+
+
+def phase_settings(dev, filter_r: int = SETTINGS_R, oracle_r: int = ORACLE_R,
+                   analytic_r: int = ANALYTIC_R):
+    """Extraction at the settings besides the default on the sheet fixture:
+    (a) the filter settings, (b) the two-tier filter engaged, (c) the
+    marching oracles, (d) plain callables."""
+    from surfd_tpu_torch.pipelines import make_udf_fn
+
+    dec, fx = load_fixture_decoder(dev)
+    udf_fn = make_udf_fn(dec, None, torch.from_numpy(fx["latent"]), fx["max_dist"], device=dev)
+    out = {}
+    for label, step in (("a", lambda: settings_filters(udf_fn, dev, filter_r)),
+                        ("b", lambda: settings_two_tier(udf_fn, dev)),
+                        ("c", lambda: settings_oracles(udf_fn, dev, oracle_r)),
+                        ("d", lambda: settings_analytic(dev, analytic_r))):
+        t0 = time.perf_counter()
+        out[label] = step()
+        log(f"[settings] ({label}) {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 CFG_STEPS = "ddim50"  # category CFG sampling: cosine 1000 respaced to 50 DDIM steps
 CFG_ACTIONS = (1, 4)  # one class per sample, B = 2; guidance makes the pass B 4
 
@@ -1093,7 +1422,7 @@ def write_recon_corpus(root: str, dev) -> None:
     np.savez(os.path.join(ae, "ae_encoder.npz"), **dgcnn_flat_from_state(enc.state_dict()))
     gt = get_mesh_from_udf(make_udf_fn(dec, None, torch.from_numpy(fx["latent"]),
                                        fx["max_dist"], device=dev),
-                           MeshExtractionConfig(resolution=256, surface_bias="auto"))
+                           cfg=MeshExtractionConfig(resolution=256, surface_bias="auto"))
     small = {"coords": np.zeros((8, 3), np.float32), "labels": np.zeros(8, np.float32),
              "gradients": np.zeros((8, 3), np.float32)}
     pcd = fx["surface_samples"]
@@ -2081,7 +2410,7 @@ def write_ae_meshes(root: str, dev) -> None:
     dec, fx = load_fixture_decoder(dev)
     sheet = get_mesh_from_udf(make_udf_fn(dec, None, torch.from_numpy(fx["latent"]),
                                           fx["max_dist"], device=dev),
-                              MeshExtractionConfig(resolution=128, surface_bias="auto"))
+                              cfg=MeshExtractionConfig(resolution=128, surface_bias="auto"))
     splits = {
         "train": {"sheet_128": sheet, "sphere_a": sphere(0.5), "sphere_b": sphere(0.8),
                   "bowl": sphere(0.6, 0.6), "torus_a": torus(0.6, 0.2),
@@ -2266,8 +2595,6 @@ def phase_parity(dev):
     watertight shell within 1 % of the JAX package's faces."""
     import copy
 
-    from scipy.spatial import cKDTree
-
     from surfd_tpu_torch.pipelines import (
         MeshExtractionConfig,
         get_mesh_from_udf,
@@ -2284,12 +2611,11 @@ def phase_parity(dev):
         model = dec if where == "card" else copy.deepcopy(dec).cpu()
         t0 = time.perf_counter()
         udf_fn = make_udf_fn(model, None, lat, fx["max_dist"], device=d, chunk=2**16)
-        runs[where] = (*get_mesh_from_udf(udf_fn, cfg, return_stats=True),
+        runs[where] = (*get_mesh_from_udf(udf_fn, cfg=cfg, return_stats=True),
                        time.perf_counter() - t0)
     (cm, cs, ct), (hm, hs, ht) = runs["card"], runs["cpu"]
     gap = abs(len(cm.faces) - len(hm.faces)) / len(hm.faces)
-    nn = 0.5 * float(cKDTree(hm.vertices).query(cm.vertices)[0].mean()
-                     + cKDTree(cm.vertices).query(hm.vertices)[0].mean())
+    nn = _mean_nn(cm.vertices, hm.vertices)
     voxel = 2.0 / (R - 1)
     same_ab = np.array_equal(cs["ab"], hs["ab"])
     log(f"[parity] 128^3 sheet: card {len(cm.faces)} faces ({ct:.2f}s), CPU {len(hm.faces)} "
@@ -2371,6 +2697,7 @@ def main() -> int:
         ae_ref = ae_reference()
         log(f"[ae] CPU reference, 4 steps ({torch.get_num_threads()} threads): {ae_ref['s']:.2f}s")
     paths = {"sample": lambda: phase_sample(dev), "extract": lambda: phase_extract(dev),
+             "settings": lambda: phase_settings(dev),
              "generate": lambda: phase_generate(dev, cfg_ref),
              "recon": lambda: phase_recon(dev, enc_ref),
              "condition": lambda: phase_condition(dev, cond_ref),

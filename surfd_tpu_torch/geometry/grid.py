@@ -5,13 +5,14 @@ The N³ vertex grid is cut into B³ blocks:
   1. coarse: the decoder at every block centre; a block is active when its
      centre UDF could hide surface inside it (< half diagonal + near band);
   2. sub-block: active blocks refined by the same test at B/4 granularity;
-  3. fine: every vertex of the remaining blocks, as u16-quantised UDF.
+  3. fine: every vertex of the remaining blocks, as u16-quantised UDF
+     where the evaluator offers it (`u16`), else as float32.
 Each level's test is sound by the triangle inequality (`auto_block_size`).
 Inactive regions keep max_dist. Vertex and sub-centre coordinates are
 generated on the device from the active-block ids; the work goes out in
 fixed-size chunks of `max_batch` points. The u16 fine values come back to
 the host and the native scatter writes them into the grid, subtracting the
-surface-bias calibration on the way.
+surface-bias calibration on the way (float32 values: a numpy scatter).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from .. import native
 from ..utils.device import resolve_device
 
 UdfFn = Callable[[torch.Tensor], torch.Tensor]  # (P, 3) f32 → (P,) f32, on device
+GradFn = Callable[[torch.Tensor], torch.Tensor]  # (P, 3) f32 → (P, 3) f32, on device
 
 
 def auto_block_size(resolution: int, spacing: float, max_dist: float, band_mult: float = 2.5) -> int:
@@ -88,16 +90,49 @@ def estimate_surface_bias(block_min, spacing: float) -> float:
 
 def _chunked(fn, x: torch.Tensor, chunk: int) -> torch.Tensor:
     """fn over fixed-size slices of x's first axis, concatenated."""
+    if len(x) == 0:
+        return fn(x)
     return torch.cat([fn(x[i:i + chunk]) for i in range(0, len(x), chunk)])
 
 
-def _u16_of(udf_fn, max_dist: float) -> UdfFn:
-    """The evaluator's u16 form, or the f32 values quantised the same way."""
-    u16 = getattr(udf_fn, "u16", None)
-    if u16 is not None:
-        return u16
-    scale = 65535.0 / max_dist
-    return lambda p: torch.round(udf_fn(p) * scale).to(torch.int32)
+def eval_in_chunks(fn, pts, chunk: int, device=None) -> np.ndarray:
+    """fn over (P, ...) points in slices of `chunk`, returned as numpy.
+
+    pts: a tensor, used where it lies, or a host array, moved to `device`,
+    else to fn's own `device` attribute, else to CUDA (never silently the
+    CPU). The JAX package pads the slices to a power-of-two count, which
+    bounds its compiled executables; eager PyTorch compiles nothing, so the
+    last slice here is simply shorter.
+    """
+    if not torch.is_tensor(pts):
+        dev = resolve_device(device if device is not None else getattr(fn, "device", None))
+        pts = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
+    return _chunked(fn, pts, chunk).detach().cpu().numpy()
+
+
+GRAD_CHUNK = 2**16  # points per backward pass: it keeps every activation
+
+
+def make_grad_fn(udf_fn, chunk: int = GRAD_CHUNK) -> GradFn:
+    """∂udf/∂xyz by one VJP with a ones cotangent per chunk of `chunk`
+    points: points are evaluated independently, so ∂(Σᵢ udfᵢ)/∂pⱼ =
+    ∂udfⱼ/∂pⱼ. An evaluator whose values come from a kernel without a
+    backward (K1) offers `autograd_udf`, the same field through
+    differentiable ops, and that is what is differentiated."""
+    f = getattr(udf_fn, "autograd_udf", udf_fn)
+
+    def one(pts):
+        with torch.enable_grad():
+            p = pts.detach().requires_grad_(True)
+            u = f(p)
+            (g,) = torch.autograd.grad(u, p, grad_outputs=torch.ones_like(u))
+        return g
+
+    def grad_fn(pts: torch.Tensor) -> torch.Tensor:
+        return _chunked(one, pts, chunk)
+
+    grad_fn.device = getattr(udf_fn, "device", None)
+    return grad_fn
 
 
 class GridFiller:
@@ -193,17 +228,25 @@ class GridFiller:
         block_min = np.empty((0,), np.float32)
         if len(ab32):
             off = self._offsets(B).to(torch.int32)
-            u16 = _u16_of(udf_fn, self.max_dist)
+            # the evaluator's u16 download and the native dequantise-scatter;
+            # a plain callable's f32 values are scattered as they are
+            u16 = getattr(udf_fn, "u16", None)
+            fine = u16 if u16 is not None else udf_fn
 
             def block_vals(abc):
                 vidx = abc[:, None, :] * B + off[None]
-                return u16(vidx.reshape(-1, 3).to(torch.float32) * sp + lo)
+                return fine(vidx.reshape(-1, 3).to(torch.float32) * sp + lo)
 
             per = max(self.max_batch // B**3, 1)
-            vals = _chunked(block_vals, ab, per).cpu().numpy().astype(np.uint16)
+            vals = _chunked(block_vals, ab, per).cpu().numpy()
             M = len(ab32)
             qstep = np.float32(self.max_dist / 65535.0)
-            block_min = vals.reshape(M, -1).min(axis=1).astype(np.float32) * qstep
+            if u16 is not None:
+                vals = vals.astype(np.uint16)
+                block_min = vals.reshape(M, -1).min(axis=1).astype(np.float32) * qstep
+            else:
+                vals = vals.astype(np.float32).reshape(M, B, B, B)
+                block_min = vals.reshape(M, -1).min(axis=1)
             if self.surface_bias == "auto":
                 est = estimate_surface_bias_field(ab32, block_min, N // B, self.spacing)
                 if est is not None:
@@ -216,7 +259,15 @@ class GridFiller:
             # keep the corrected field ≥ half a quantisation step: a slightly
             # negative endpoint would extrapolate spike vertices in marching
             clamp_min = float(0.5 * qstep) if bias_pb is not None else 0.0
-            native.scatter_u16_blocks(grid, ab32, vals, B, qstep, bias_pb, clamp_min)
+            if u16 is not None:
+                native.scatter_u16_blocks(grid, ab32, vals, B, qstep, bias_pb, clamp_min)
+            else:
+                if bias_pb is not None:
+                    vals = np.maximum(vals - bias_pb[:, None, None, None], np.float32(clamp_min))
+                ax, ay, az = (ab32.astype(np.int64) * B).T
+                r = np.arange(B)
+                grid[(ax[:, None] + r)[:, :, None, None], (ay[:, None] + r)[:, None, :, None],
+                     (az[:, None] + r)[:, None, None, :]] = vals
 
         if return_stats:
             return grid, {
@@ -231,6 +282,29 @@ class GridFiller:
                 "block_min": block_min,
             }
         return grid
+
+
+    def fill_gradients(self, grad_fn: GradFn, udf_grid: np.ndarray,
+                       band_mult: float = 2.5) -> np.ndarray:
+        """(N,N,N,3) float32 gradients where udf < band_mult·voxel, zero
+        elsewhere: the reference's dense near-band gradient pass (threshold
+        2.5·side/N). The marching oracles read it; the generation path asks
+        for gradients only at the active cubes' corners instead.
+
+        Deliberate deviation from the JAX package, which evaluates at the
+        linspace coordinates: the nodes are taken at index·spacing + lo in
+        float32, where the fill evaluated them and where the lazy lookups by
+        grid id do (the two differ by an ulp at most nodes)."""
+        N = self.N
+        gids = np.flatnonzero(udf_grid.reshape(-1) < band_mult * self.spacing)
+        grads = np.zeros((N**3, 3), dtype=np.float32)
+        if len(gids) == 0:
+            return grads.reshape(N, N, N, 3)
+        x, rem = gids // (N * N), gids % (N * N)
+        idx = np.stack([x, rem // N, rem % N], axis=-1).astype(np.float32)
+        pts = idx * np.float32(self.spacing) + np.float32(self.lo)
+        grads[gids] = eval_in_chunks(grad_fn, pts, self.max_batch, device=self.device)
+        return grads.reshape(N, N, N, 3)
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
 """Surface extraction by marching tetrahedra (counterpart of
-surfd_tpu/geometry/marching.py): the open surface of a UDF grid on the
-native C++ path (`marching_tetrahedra_udf`), and the iso-surface of a signed
-grid in numpy (`marching_tetrahedra`, the watertight path).
+surfd_tpu/geometry/marching.py): the open surface of a UDF grid
+(`marching_tetrahedra_udf`, native C++ passes, or numpy with
+`use_native=False`), and the iso-surface of a signed grid in numpy
+(`marching_tetrahedra`, the watertight path).
 
 Each cube splits into 6 Kuhn tetrahedra. Corner pseudo-signs come from
 gradient crossings along axis edges (an edge crosses the surface iff its
@@ -65,22 +66,47 @@ def empty_mesh() -> Mesh:
     return Mesh(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64))
 
 
+def int8_units(g: np.ndarray) -> np.ndarray:
+    """(..., 3) gradients as the native passes read them: unit vectors × 127
+    rounded to int8."""
+    norm = np.maximum(np.linalg.norm(g, axis=-1, keepdims=True), 1e-12)
+    return np.round(g / norm * 127.0).astype(np.int8)
+
+
+def settled_int8_units(g: np.ndarray) -> np.ndarray:
+    """`int8_units` applied to its own output (as float32) until that leaves
+    it unchanged: float32 gradients that the numpy path and the native
+    passes (which re-normalise what they are given) read alike."""
+    g = np.asarray(g, np.float32)
+    while True:
+        r = int8_units(g).astype(np.float32)
+        if np.array_equal(r, g):
+            return r
+        g = r
+
+
 def marching_tetrahedra_udf(
     udf: np.ndarray,
     gradients,
     coords_range: tuple = (-1.0, 1.0),
     near_mult: float = 1.74,
     avg_mult: float = 1.05,
+    use_native: bool = True,
     times: dict | None = None,
     active_blocks: tuple | None = None,
 ) -> Mesh:
     """Extract an open surface from an (R,R,R) UDF grid.
 
-    gradients: a dense (R,R,R,3) array, or a callable gid (K,) int64 →
-    (K, 3) gradient (any scale; only directions are used).
+    gradients (any scale; only directions are used): a dense (R,R,R,3)
+    array; a callable marked `by_gid = True` taking flat grid ids (K,)
+    int64; or any other callable, taking grid-node points (K, 3) f32.
+    Either callable returns (K, 3) and is asked only at the corners of the
+    active cubes.
+    use_native: the native C++ passes (the default); False runs the numpy
+    version of the same algorithm, the oracle the native passes are held to.
     active_blocks: optional (ab (M,3), B) from GridFiller.fill — every
-    near-band node is inside a listed block, so pass 1 scans only those
-    blocks dilated by one in the negative direction.
+    near-band node is inside a listed block, so native pass 1 scans only
+    those blocks dilated by one in the negative direction.
     """
     R = udf.shape[0]
     if udf.shape != (R, R, R):
@@ -89,12 +115,17 @@ def marching_tetrahedra_udf(
     voxel = (hi - lo) / (R - 1)
     u = np.ascontiguousarray(udf, dtype=np.float32)
     if callable(gradients):
-        grad_lookup = lambda gids: np.asarray(gradients(np.asarray(gids)), np.float32)
+        if getattr(gradients, "by_gid", False):
+            grad_lookup = lambda gids: np.asarray(gradients(np.asarray(gids)), np.float32)
+        else:
+            grad_lookup = _LazyGradLookup(gradients, R, lo, voxel)
     else:
         if gradients.shape != (R, R, R, 3):
             raise ValueError(f"gradients must be (R, R, R, 3), got {gradients.shape}")
         flat_g = np.ascontiguousarray(gradients, dtype=np.float32).reshape(-1, 3)
         grad_lookup = lambda gids: flat_g[gids]
+    if not use_native:
+        return _marching_udf_numpy(u, grad_lookup, R, lo, voxel, near_mult, avg_mult)
 
     def mark(name, t0):
         if times is not None:
@@ -114,13 +145,11 @@ def marching_tetrahedra_udf(
         sb[:, 0] = scan // (nb * nb)
         sb[:, 1] = (scan // nb) % nb
         sb[:, 2] = scan % nb
-    else:  # every block of a 1-voxel tiling: the whole grid
-        B = 1
-        r = np.arange(R, dtype=np.int32)
-        sb = np.stack(np.meshgrid(r, r, r, indexing="ij"), axis=-1).reshape(-1, 3)
-    cube_ids, near_gids = native.mt_active_cubes_blocks(
-        u, near_mult * voxel, avg_mult * voxel, sb, B
-    )
+        cube_ids, near_gids = native.mt_active_cubes_blocks(
+            u, near_mult * voxel, avg_mult * voxel, sb, B
+        )
+    else:
+        cube_ids, near_gids = native.mt_active_cubes(u, near_mult * voxel, avg_mult * voxel)
     t0 = mark("mt_pass1", t0)
     if times is not None:
         times["mt_cubes"] = len(cube_ids)
@@ -132,12 +161,79 @@ def marching_tetrahedra_udf(
     t0 = mark("mt_unique", t0)
     g_near = grad_lookup(near_gids)
     t0 = mark("mt_grads", t0)
-    norm = np.maximum(np.linalg.norm(g_near, axis=-1, keepdims=True), 1e-12)
-    g8 = np.round(g_near / norm * 127.0).astype(np.int8)[inv8]
+    g8 = int8_units(g_near)[inv8]
     t0 = mark("mt_g8", t0)
     verts, faces = native.mt_emit(u, lo, voxel, cube_ids, g8)
     mark("mt_pass2", t0)
     return Mesh(verts, faces)
+
+
+def _marching_udf_numpy(u, grad_lookup, R, lo, voxel, near_mult, avg_mult) -> Mesh:
+    """The numpy marching path: candidate cubes from one full-grid pass,
+    corner signs by crossing parity, t = u_a / (u_a + u_b), then faces
+    oriented along the gradient at each vertex's nearest grid node."""
+    flat_u = u.reshape(-1)
+    # a cube takes part only if all 8 corners are near, so its min corner
+    # is near too: the near nodes bound the candidates
+    near_thresh = np.float32(near_mult * voxel)
+    cand = np.argwhere((u <= near_thresh)[: R - 1, : R - 1, : R - 1])
+    if len(cand) == 0:
+        return empty_mesh()
+    gids_c = _cube_corner_gids(cand, R)  # (C, 8)
+    u8 = flat_u[gids_c]
+    ok = (u8 <= near_thresh).all(axis=1) & (u8.mean(axis=1) < avg_mult * voxel)
+    if not ok.any():
+        return empty_mesh()
+    gids = gids_c[ok]
+    u8 = u8[ok]
+    # gradients once per distinct corner of the active cubes
+    uniq_gids, inv8 = np.unique(gids, return_inverse=True)
+    g8 = grad_lookup(uniq_gids)[inv8.reshape(-1)].reshape(gids.shape + (3,))
+
+    # corner pseudo-signs by crossing parity along the path (0,0,0) →
+    # (dx,0,0) → (dx,dy,0) → (dx,dy,dz); an edge crosses iff its endpoint
+    # gradients oppose
+    def edge_cross(ca: int, cb: int) -> np.ndarray:
+        return (g8[:, ca] * g8[:, cb]).sum(axis=-1) < 0.0
+
+    cx = edge_cross(0, 1)
+    cy = (edge_cross(0, 2), edge_cross(1, 3))  # y edges at dx = 0, 1
+    cz = ((edge_cross(0, 4), edge_cross(2, 6)),  # dx = 0: dy = 0, 1
+          (edge_cross(1, 5), edge_cross(3, 7)))  # dx = 1: dy = 0, 1
+    signs = np.ones((len(gids), 8), dtype=np.float32)
+    for ci, (dx, dy, dz) in enumerate(_CORNER_OFFSETS):
+        parity = np.zeros(len(gids), dtype=bool)
+        if dx:
+            parity ^= cx
+        if dy:
+            parity ^= cy[dx]
+        if dz:
+            parity ^= cz[dx][dy]
+        if ci:
+            signs[:, ci] = np.where(parity, -1.0, 1.0)
+    # the signs hold up to a per-cube flip, but t depends only on the
+    # unsigned distances: every cube sharing an edge places it alike
+    mesh = _emit_triangles_udf(signs * u8, gids, R, lo, voxel, flat_u)
+    if len(mesh.faces):
+        vid = np.clip(np.round((mesh.vertices - lo) / voxel).astype(np.int64), 0, R - 1)
+        vgid = (vid[:, 0] * R + vid[:, 1]) * R + vid[:, 2]
+        uq, vinv = np.unique(vgid, return_inverse=True)
+        mesh = _orient_faces_by_gradient(mesh, grad_lookup(uq)[vinv.reshape(-1)])
+    return mesh
+
+
+class _LazyGradLookup:
+    """gid → gradient through a point-taking gradient callable."""
+
+    def __init__(self, grad_at, R: int, lo: float, voxel: float):
+        self.grad_at = grad_at
+        self.R = R
+        self.lo = lo
+        self.voxel = voxel
+
+    def __call__(self, gids: np.ndarray) -> np.ndarray:
+        pts = _gid_positions(np.asarray(gids, np.int64), self.R, self.lo, self.voxel)
+        return np.asarray(self.grad_at(pts), np.float32)
 
 
 def _cube_corner_gids(cube_xyz: np.ndarray, R: int) -> np.ndarray:
@@ -212,6 +308,20 @@ def _emit_triangles(corner_vals: np.ndarray, corner_gids: np.ndarray, R: int, lo
         return np.clip(t, 0.0, 1.0).astype(np.float32)
 
     return _emit_triangles_core(corner_vals - iso, corner_gids, R, lo, spacing, t_fn)
+
+
+def _emit_triangles_udf(corner_vals: np.ndarray, corner_gids: np.ndarray, R: int, lo: float,
+                        spacing: float, flat_u: np.ndarray) -> Mesh:
+    """Pseudo-signed UDF emission: each crossing at t = u_a / (u_a + u_b),
+    clamped to [0, 1] (a bias-calibrated grid can dip just below 0, and an
+    unclamped t would place spike vertices off the edge)."""
+
+    def t_fn(ua, ub):
+        su = flat_u[ua] + flat_u[ub]
+        t = flat_u[ua] / np.where(su <= 1e-12, 1, su)
+        return np.clip(t, 0.0, 1.0).astype(np.float32)
+
+    return _emit_triangles_core(corner_vals, corner_gids, R, lo, spacing, t_fn)
 
 
 def _orient_faces_by_gradient(mesh: Mesh, outward_at: np.ndarray) -> Mesh:

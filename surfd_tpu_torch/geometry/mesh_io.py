@@ -1,4 +1,4 @@
-"""Minimal OBJ mesh input and output."""
+"""Minimal OBJ mesh input and output, and binary PLY output."""
 
 from __future__ import annotations
 
@@ -41,3 +41,25 @@ def read_obj(path: str) -> Mesh:
     v = np.asarray(verts, dtype=np.float32)
     f = np.asarray(faces, dtype=np.int64)
     return Mesh(v, np.where(f > 0, f - 1, len(v) + f))
+
+
+def write_ply(path: str, mesh: Mesh) -> None:
+    """The mesh as binary little-endian PLY: float32 x, y, z per vertex and
+    a uchar-counted int32 index list per face."""
+    v = np.asarray(mesh.vertices, dtype=np.float32)
+    f = np.asarray(mesh.faces, dtype=np.int32)
+    with open(path, "wb") as fh:
+        header = (
+            "ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {len(v)}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            f"element face {len(f)}\n"
+            "property list uchar int vertex_indices\nend_header\n"
+        )
+        fh.write(header.encode())
+        fh.write(v.astype("<f4").tobytes())
+        counts = np.full((len(f), 1), 3, dtype=np.uint8)
+        rows = np.concatenate(
+            [counts, f.astype("<i4").view(np.uint8).reshape(len(f), -1)], axis=1
+        )
+        fh.write(rows.tobytes())

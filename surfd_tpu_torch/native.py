@@ -1,9 +1,10 @@
 """ctypes bindings for the repo's native C++ geometry runtime (`native/*.cpp`).
 
 The port's own copy of the calls its generation and evaluation paths use:
-marching passes (`mt_active_cubes_blocks`, `mt_corner_ranks`, `mt_emit`),
-the fused u16 block scatter, the face-filter prep and fused cleanup, the
-radix-sorted unique and the closest-point BVH query. The library is built
+marching passes (`mt_active_cubes`, `mt_active_cubes_blocks`,
+`mt_corner_ranks`, `mt_emit`), the fused u16 block scatter, the face-filter
+preps (f32 and u16 points) and fused cleanups, the radix-sorted unique and
+the closest-point BVH query. The library is built
 from `native/` with the g++ line of `native/build.sh` into
 `surfd_tpu_torch/_native/` at first use, and rebuilt when a source is newer.
 Host-side only; it does not depend on the framework.
@@ -72,15 +73,22 @@ def _declare(lib: ctypes.CDLL) -> None:
         "surfd_closest_points": (ctypes.c_int, [
             _fp, c_i64, _ip, c_i64, _fp, c_i64, _fp, _fp, _ip]),
         "surfd_unique_inverse_i64": (c_i64, [_i64p, c_i64, ctypes.POINTER(_i64p), _i64p]),
+        "surfd_face_filter_prep": (c_i64, [
+            _fp, c_i64, _i64p, c_i64, ctypes.POINTER(_fp), ctypes.POINTER(_i64p)]),
         "surfd_face_filter_prep_q16": (c_i64, [
             _fp, c_i64, _i64p, c_i64, c_f, c_f, ctypes.POINTER(_u16p),
             ctypes.POINTER(_i64p), ctypes.POINTER(_i64p), ctypes.POINTER(_i64p)]),
         "surfd_mt_emit": (c_i64, [
             _fp, c_i32, c_f, c_f, _i64p, c_i64, _i8p,
             ctypes.POINTER(_fp), _i64p, ctypes.POINTER(_i64p), _i64p]),
+        "surfd_finalize_mesh": (None, [
+            _fp, c_i64, _i64p, c_i64, _u8p, _i64p,
+            c_i32, c_i32, c_f, c_i32, ctypes.POINTER(_fp), _i64p, ctypes.POINTER(_i64p), _i64p]),
         "surfd_finalize_mesh_pre": (None, [
             _fp, c_i64, _i64p, c_i64, _u8p, _i64p, _i64p, _i64p, c_i64,
             c_i32, c_i32, c_f, c_i32, ctypes.POINTER(_fp), _i64p, ctypes.POINTER(_i64p), _i64p]),
+        "surfd_mt_active_cubes": (c_i64, [
+            _fp, c_i32, c_f, c_f, ctypes.POINTER(_i64p), ctypes.POINTER(_i64p), _i64p]),
         "surfd_mt_active_cubes_blocks": (c_i64, [
             _fp, c_i32, c_f, c_f, _ip, c_i64, c_i32,
             ctypes.POINTER(_i64p), ctypes.POINTER(_i64p), _i64p]),
@@ -147,6 +155,27 @@ def closest_points(vertices, triangles, queries):
     if rc != 0:
         raise RuntimeError(f"surfd_closest_points failed with code {rc}")
     return out_d, out_c, out_t
+
+
+def _udf_grid(udf):
+    u = _f32(udf)
+    if u.ndim != 3 or not u.shape[0] == u.shape[1] == u.shape[2]:
+        raise ValueError(f"udf must be (R, R, R), got {u.shape}")
+    return u
+
+
+def mt_active_cubes(udf, near_thr: float, avg_thr: float):
+    """(active-cube ids, sorted distinct active-cube corner gids) in one
+    sweep of the whole (R, R, R) grid."""
+    lib = load()
+    u = _udf_grid(udf)
+    out, near, n_near = _i64p(), _i64p(), ctypes.c_int64(0)
+    n = lib.surfd_mt_active_cubes(
+        u.ctypes.data_as(_fp), u.shape[0], near_thr, avg_thr,
+        ctypes.byref(out), ctypes.byref(near), ctypes.byref(n_near),
+    )
+    nn = int(n_near.value)
+    return _own(out, (max(int(n), 1),), int(n)), _own(near, (max(nn, 1),), nn)
 
 
 def mt_active_cubes_blocks(udf, near_thr: float, avg_thr: float, scan_blocks, block: int):
@@ -220,6 +249,31 @@ def mt_emit(udf, lo: float, spacing: float, cube_ids, g8):
     return _own(ov, (max(V, 1), 3), V), _own(of, (max(F, 1), 3), F)
 
 
+def _mesh_arrays(vertices, faces):
+    v, f = _f32(vertices), _i64(faces)
+    if v.ndim != 2 or v.shape[1] != 3:
+        raise ValueError(f"vertices must be (V, 3), got {v.shape}")
+    if f.ndim != 2 or f.shape[1] != 3:
+        raise ValueError(f"faces must be (F, 3), got {f.shape}")
+    if len(f) and (f.min() < 0 or f.max() >= len(v)):
+        raise ValueError("face indices out of range")
+    return v, f
+
+
+def face_filter_prep(vertices, faces):
+    """The face filter's f32 query points, vertices then unique-edge
+    midpoints, and per-face edge ids: (pts (V+E, 3) f32, einv (F, 3))."""
+    lib = load()
+    v, f = _mesh_arrays(vertices, faces)
+    opts, oeinv = _fp(), _i64p()
+    E = int(lib.surfd_face_filter_prep(
+        v.ctypes.data_as(_fp), len(v), f.ctypes.data_as(_i64p), len(f),
+        ctypes.byref(opts), ctypes.byref(oeinv),
+    ))
+    n = len(v) + E
+    return _own(opts, (max(n, 1), 3), n), _own(oeinv, (max(len(f), 1), 3), len(f))
+
+
 def face_filter_prep_q16(vertices, faces, qlo: float, qinv: float):
     """Unique-edge midpoints quantised to the 2^16 coords grid, per-face edge
     ids and the edge endpoints: (qmids (E,3) u16, einv (F,3), ea (E,), eb (E,))."""
@@ -236,6 +290,32 @@ def face_filter_prep_q16(vertices, faces, qlo: float, qinv: float):
         _own(oea, (max(E, 1),), E),
         _own(oeb, (max(E, 1),), E),
     )
+
+
+def finalize_mesh(vertices, faces, ok, einv, fill_holes: bool = True,
+                  smooth_iters: int = 20, lam: float = 0.3, merge_decimals: int = 6):
+    """Keep faces whose vertices and edge midpoints pass `ok` (over
+    face_filter_prep's points), then fill 3-edge holes, smooth open borders
+    and merge duplicate vertices: the numpy chain filter → stabilize →
+    smooth_borders → merge_duplicate_vertices of geometry.mesh_ops."""
+    lib = load()
+    v, f = _mesh_arrays(vertices, faces)
+    okc = np.ascontiguousarray(ok, dtype=np.uint8)
+    ei = _i64(einv)
+    if ei.shape != f.shape:
+        raise ValueError(f"einv must be {f.shape}, got {ei.shape}")
+    n_pts = len(v) + int(ei.max(initial=-1)) + 1
+    if len(f) and len(okc) != n_pts:
+        raise ValueError(f"ok has {len(okc)} entries, want {n_pts}")
+    ov, of, nv, nf = _fp(), _i64p(), ctypes.c_int64(), ctypes.c_int64()
+    lib.surfd_finalize_mesh(
+        v.ctypes.data_as(_fp), len(v), f.ctypes.data_as(_i64p), len(f),
+        okc.ctypes.data_as(_u8p), ei.ctypes.data_as(_i64p),
+        1 if fill_holes else 0, smooth_iters, lam, merge_decimals,
+        ctypes.byref(ov), ctypes.byref(nv), ctypes.byref(of), ctypes.byref(nf),
+    )
+    V, F = int(nv.value), int(nf.value)
+    return _own(ov, (max(V, 1), 3), V), _own(of, (max(F, 1), 3), F)
 
 
 def finalize_mesh_pre(vertices, faces, ok, einv, ea, eb, fill_holes: bool = True,

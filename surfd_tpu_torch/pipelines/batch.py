@@ -59,7 +59,7 @@ def generate_meshes_pipelined(
     `return_stats`.
     """
     extract = get_watertight_mesh_from_udf if watertight else get_mesh_from_udf
-    work = _on_callers_stream(lambda fn: extract(fn, cfg, return_stats=return_stats))
+    work = _on_callers_stream(lambda fn: extract(fn, cfg=cfg, return_stats=return_stats))
     depth = max(1, depth)
     with ThreadPoolExecutor(max_workers=depth) as pool:
         it = iter(udf_fns)

@@ -1,15 +1,23 @@
 """End-to-end generation: latent → UDF grid → mesh → cleanup.
 
-Counterpart of surfd_tpu/pipelines/generate.py on its main path: latent
-sampling (DDPM, DDIM or PLMS), the per-latent decoder evaluator, block-sparse
-extraction with the fused native face filter and cleanup, and the watertight
-alternative (signed marching at a small iso on the filled grid).
+Counterpart of surfd_tpu/pipelines/generate.py: latent sampling (DDPM,
+DDIM or PLMS), the per-latent decoder evaluator, block-sparse extraction at
+every `MeshExtractionConfig` setting (the fused native face filter on u16 or
+exact f32 points, one- or two-tier, or no filter and the numpy cleanup), the
+numpy face filter `filter_faces_by_udf`, and the watertight alternative
+(signed marching at a small iso on the filled grid). `get_mesh_from_udf`
+also takes any torch point callable, such as an analytic field.
 
 Which evaluator runs where. Every decoder value on a CUDA device goes
 through kernel K1 (`ops.folded_udf`): precision "f32" for the coarse,
-sub-block and fine fill, the single-tier and tier-2 face-filter masks and the
-band calibration's reference; "bf16" for tier 1 of the two-tier filter.
-Gradients are torch autograd through the float32 CbnDecoder.
+sub-block and fine fill, the single-tier, tier-2 and exact-point face-filter
+values and the band calibration's reference; "bf16" for tier 1 of the
+two-tier filter. Gradients are torch autograd through the float32
+CbnDecoder.
+
+Deliberate deviation from the JAX package: where the native library cannot
+load, JAX falls back to `filter_faces_by_udf` and numpy marching; the port
+raises, and reaches those only when the caller asks for them.
 """
 
 from __future__ import annotations
@@ -25,19 +33,24 @@ from ..diffusion import Schedule, VarType, ddim_sample_loop, p_sample_loop, plms
 from ..geometry import (
     GridFiller,
     Mesh,
+    eval_in_chunks,
     filter_small_components,
     keep_largest_component,
     laplacian_smooth,
+    make_grad_fn,
     marching_tetrahedra,
     marching_tetrahedra_udf,
+    merge_duplicate_vertices,
     remove_unreferenced_vertices,
+    smooth_borders,
+    stabilize,
 )
+from ..geometry.grid import GRAD_CHUNK
+from ..geometry.mesh_ops import _unique_i64
 from ..models.decoder import CbnDecoder, coords_encode, udf_from_logits
 from ..ops.decoder_kernel import fold_decoder, folded_udf
 from ..utils.convert import strip_prefix
 from ..utils.device import resolve_device
-
-DOMAIN = (-1.0, 1.0)
 
 
 class BiasTable:
@@ -65,11 +78,9 @@ class UdfEvaluator:
     Counterpart of the closure `make_udf_fn` returns in the JAX package. All
     inputs and outputs of the device forms are tensors on `self.device`;
     every form works through its input in chunks of `chunk` points (the
-    autograd gradient in chunks of at most GRAD_CHUNK: it keeps every
-    activation of its chunk for the backward pass).
+    autograd gradient in chunks of at most `geometry.grid.GRAD_CHUNK`: it keeps
+    every activation of its chunk for the backward pass).
     """
-
-    GRAD_CHUNK = 2**16
 
     def __init__(self, decoder: CbnDecoder, latent: torch.Tensor, max_dist: float,
                  device: torch.device, chunk: int = 2**19):
@@ -142,17 +153,16 @@ class UdfEvaluator:
             self._band = max(2.0 * err, 1e-4 * self.max_dist)
         return self._band
 
+    def autograd_udf(self, pts: torch.Tensor) -> torch.Tensor:
+        """The float32 UDF through the CbnDecoder's differentiable ops (K1
+        has no backward): what `geometry.make_grad_fn` differentiates."""
+        return udf_from_logits(
+            self.decoder(coords_encode(pts)[None], self.latent[None])[0], self.max_dist)
+
     def grad(self, pts: torch.Tensor) -> torch.Tensor:
-        """∂udf/∂p by autograd through the float32 CbnDecoder."""
-        def one(p):
-            with torch.enable_grad():
-                p = p.detach().requires_grad_(True)
-                u = udf_from_logits(
-                    self.decoder(coords_encode(p)[None], self.latent[None])[0], self.max_dist
-                )
-                (g,) = torch.autograd.grad(u.sum(), p)
-            return g
-        return self._chunks(one, pts, min(self.chunk, self.GRAD_CHUNK))
+        """∂udf/∂p by autograd through the float32 CbnDecoder
+        (`geometry.make_grad_fn` over this evaluator)."""
+        return make_grad_fn(self, min(self.chunk, GRAD_CHUNK))(pts)
 
     def grad_i8_gid(self, gids, R: int, lo: float, spacing: float) -> np.ndarray:
         """int8 unit gradients at flat grid ids (host int64 in, host int8 out)."""
@@ -184,49 +194,139 @@ def make_udf_fn(decoder: CbnDecoder, state, latent, max_dist: float = 0.1, devic
 
 @dataclass
 class MeshExtractionConfig:
-    """Extraction settings. The domain is [-1, 1]³; the face filter always
-    runs two-tier with a calibrated band (off when the band reaches a
-    quarter of the threshold); the cleanup always fills holes and smooths
-    the borders."""
+    """Extraction settings: the JAX package's, without its device mesh."""
 
     resolution: int = 512
+    coords_range: tuple = (-1.0, 1.0)
     max_dist: float = 0.1
     max_batch: int = 2**19
+    # False: no face filter; the numpy cleanup chain runs instead
+    filter_faces: bool = True
     # threshold = face_filter_mult / resolution (reference th_dist = 1/N)
     face_filter_mult: float = 1.0
     # "auto": per-block floor field from the fill's block minima, subtracted
     # in the scatter and widening the filter threshold point by point; a
     # float forces a uniform bias; 0.0 is the raw reference semantics
     surface_bias: float | str = 0.0
+    do_stabilize: bool = True  # fill 3-edge holes (and merge, on the numpy chain)
+    do_smooth_borders: bool = True  # 20 Laplacian steps of the open borders
+    # filter points on the 2^16 coords grid (half-step 1.5e-5 on (-1, 1),
+    # under 1 % of the 1/512 threshold); False re-queries the exact f32
+    # points, as the reference does
+    quantized_filter_points: bool = True
+    # two-tier filter: tier 1 (K1 bf16) decides outside the calibrated band,
+    # tier 2 (K1 f32) re-checks the points inside it; the mask equals the
+    # single-tier f32 one. It runs only while band < threshold / 4.
+    two_tier_filter: bool = True
+    # None: the band calibrated per decoder and latent; a float overrides it
+    two_tier_band: float | None = None
     final_laplacian_iters: int = 0
     min_component_faces: int = 0
 
 
+def _device_of(udf_fn, grad_fn=None) -> torch.device:
+    """The extraction's device: udf_fn's, else grad_fn's, else CUDA (which
+    raises without a card: never a silent CPU run)."""
+    for d in (getattr(udf_fn, "device", None), getattr(grad_fn, "device", None)):
+        if d is not None:
+            return resolve_device(d)
+    return resolve_device(None)
+
+
+def make_field_bias_at(bias_field: np.ndarray, lo: float, cell: float):
+    """Host per-point lookup into the per-block surface-bias floor field
+    (the containing block: the field is block-constant)."""
+    nb = bias_field.shape[0]
+
+    def bias_at(pts: np.ndarray) -> np.ndarray:
+        bi = np.clip(((pts - lo) * (1.0 / cell)).astype(np.int32), 0, nb - 1)
+        return bias_field[bi[:, 0], bi[:, 1], bi[:, 2]]
+
+    return bias_at
+
+
+def _below_f32(udf_fn, pts: np.ndarray, threshold: float, chunk: int, bias_at=None,
+               device=None) -> np.ndarray:
+    """udf(p) − bias_at(p) ≤ threshold at exact f32 points (host bool)."""
+    u = eval_in_chunks(udf_fn, pts, chunk, device=device)
+    if bias_at is not None:
+        u = u - bias_at(pts)
+    return u <= threshold
+
+
+def filter_faces_by_udf(mesh: Mesh, udf_fn, threshold: float, chunk: int = 2**16,
+                        bias_at=None) -> Mesh:
+    """Drop faces with a vertex or an edge midpoint whose UDF exceeds
+    `threshold` (the reference's false-face filter, th_dist = 1/N), in numpy
+    around one evaluation of the deduplicated points. bias_at: optional host
+    (P, 3) → (P,) local surface-bias floor; the test is then
+    udf(p) − bias_at(p) ≤ threshold. The points go to udf_fn's device, else
+    to CUDA."""
+    if len(mesh.faces) == 0:
+        return mesh
+    v, f = mesh.vertices, mesh.faces
+    ea_all = np.concatenate([f[:, 0], f[:, 1], f[:, 2]])
+    eb_all = np.concatenate([f[:, 1], f[:, 2], f[:, 0]])
+    NV = len(v) + 1
+    uniq, inv = _unique_i64(np.minimum(ea_all, eb_all) * NV + np.maximum(ea_all, eb_all))
+    ea = (uniq // NV).astype(np.int64)
+    eb = (uniq % NV).astype(np.int64)
+    pts = np.concatenate([v, 0.5 * (v[ea] + v[eb])], axis=0).astype(np.float32)
+    ok = _below_f32(udf_fn, pts, threshold, chunk, bias_at)
+    mid_ok = ok[len(v):][inv].reshape(3, -1)
+    keep = ok[: len(v)][f].all(axis=1) & mid_ok.all(axis=0)
+    return Mesh(v, f[keep])
+
+
 @torch.no_grad()
-def get_mesh_from_udf(udf_fn: UdfEvaluator, cfg: MeshExtractionConfig = MeshExtractionConfig(),
+def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtractionConfig(),
                       return_stats: bool = False):
-    """Evaluator → cleaned open mesh: block-sparse fill, int8 gradients at
-    the near-band corners, native marching, the u16-point face filter and
-    the fused native cleanup. Raises if the native library cannot load."""
-    dev = resolve_device(udf_fn.device)
+    """UDF → cleaned open mesh: block-sparse fill, marching at the
+    near-band corners, the face filter and the cleanup, as `cfg` selects.
+
+    udf_fn: a `UdfEvaluator` (make_udf_fn), or any callable (P, 3) f32
+    tensor → (P,) on one device, such as a `geometry.TorchField`. The
+    evaluator's forms are used where it has them, as the JAX package probes
+    its evaluator: int8 gradients by grid id (`grad_i8_gid`), the u16-point
+    filter (`below_q16`) and its two tiers (`below2t_q16`, `two_tier_band`).
+    A plain callable gets its gradients from grad_fn (a torch point
+    callable, or a host one taking grid ids and marked `by_gid = True`), else
+    from `make_grad_fn`, and its filter on exact f32 points. The device is
+    udf_fn's `device`, else grad_fn's, else CUDA. Raises if the native
+    library cannot load.
+    """
+    if isinstance(grad_fn, MeshExtractionConfig):
+        raise TypeError("the second argument is grad_fn; pass the config as cfg=")
+    dev = _device_of(udf_fn, grad_fn)
     times = {}
     t0 = time.perf_counter()
-    gf = GridFiller(cfg.resolution, DOMAIN, max_batch=cfg.max_batch,
+    gf = GridFiller(cfg.resolution, cfg.coords_range, max_batch=cfg.max_batch,
                     max_dist=cfg.max_dist, surface_bias=cfg.surface_bias, device=dev)
     grid, stats = gf.fill(udf_fn, return_stats=True)
     times["grid_fill"] = time.perf_counter() - t0
-    lo_, hi_ = DOMAIN
-    voxel = (hi_ - lo_) / (cfg.resolution - 1)
+    lo_, hi_ = cfg.coords_range
+    R = cfg.resolution
+    voxel = (hi_ - lo_) / (R - 1)
+    # the grid has the calibrated bias subtracted; re-queries of the decoder
+    # widen the threshold by the local bias (the field), or by its median
+    surf_bias = float(stats.get("surface_bias") or 0.0)
     bias_field = stats.get("surface_bias_field")
-    bias_tbl = None
-    if bias_field is not None and float(bias_field.max()) > 0:
-        bias_tbl = BiasTable(bias_field, lo_, (cfg.resolution // bias_field.shape[0]) * voxel,
-                             dev)
+    if bias_field is not None and not float(bias_field.max()) > 0:
+        bias_field, surf_bias = None, 0.0
+    cell = (R // bias_field.shape[0]) * voxel if bias_field is not None else None
     active_blocks = (stats["ab"], stats["block"]) if len(stats.get("ab", ())) else None
 
     t0 = time.perf_counter()
-    grad_at = lambda gids: udf_fn.grad_i8_gid(gids, cfg.resolution, lo_, voxel)
-    mesh = marching_tetrahedra_udf(grid, grad_at, DOMAIN, times=times,
+    gid_grad = getattr(udf_fn, "grad_i8_gid", None)
+    if grad_fn is None and gid_grad is not None:
+        grad_at = lambda gids: gid_grad(gids, R, lo_, voxel)
+        grad_at.by_gid = True
+    elif getattr(grad_fn, "by_gid", False):
+        grad_at = grad_fn
+    else:
+        point_grad = grad_fn if grad_fn is not None else make_grad_fn(udf_fn)
+        grad_at = lambda pts: eval_in_chunks(point_grad, pts, cfg.max_batch, device=dev)
+    mesh = marching_tetrahedra_udf(grid, grad_at, cfg.coords_range, times=times,
                                    active_blocks=active_blocks)
     times["marching"] = time.perf_counter() - t0
     stats["raw_faces"] = len(mesh.faces)
@@ -244,45 +344,75 @@ def get_mesh_from_udf(udf_fn: UdfEvaluator, cfg: MeshExtractionConfig = MeshExtr
     stats["face_budget_ratio"] = round(len(mesh.faces) / max(stats.get("fine_points", 0), 1), 3)
     stats["face_explosion"] = stats["face_budget_ratio"] > 2.0
 
-    if len(mesh.faces):
+    if len(mesh.faces) and cfg.filter_faces:
         t0 = time.perf_counter()
-        threshold = cfg.face_filter_mult / cfg.resolution + (
-            0.0 if bias_tbl is not None else float(stats.get("surface_bias") or 0.0))
-        qstep = (hi_ - lo_) / 65535.0
-        band = udf_fn.two_tier_band()
-        # filter points sit on the surface, where |udf − thr| is small:
-        # a wide band re-checks most of them and one f32 pass is cheaper
-        two_tier = band < 0.25 * threshold
-        stats.update(ff_band=band, ff_threshold=threshold, ff_two_tier=two_tier)
-        qverts = np.clip(np.rint((mesh.vertices - lo_) * (1.0 / qstep)), 0, 65535).astype(np.uint16)
-        qmids, einv, ea, eb = native.face_filter_prep_q16(mesh.vertices, mesh.faces, lo_, 1.0 / qstep)
-        times["ff_prep"] = round(time.perf_counter() - t0, 3)
-        qall = np.concatenate([qverts, qmids])
-        q = torch.from_numpy(qall.astype(np.int32)).to(dev)
-        if two_tier:
-            t1 = time.perf_counter()
-            below, sure = udf_fn.below2t_q16(q, threshold, lo_, qstep, band, bias_tbl)
-            uns = torch.nonzero(~sure)[:, 0]
-            stats["ff_unsure"] = int(len(uns))
-            if len(uns):
-                below[uns] = udf_fn.below_q16(q[uns], threshold, lo_, qstep, bias_tbl)
-            times["ff_t1_t2"] = round(time.perf_counter() - t1, 3)
+        pre = getattr(udf_fn, "below_q16", None) is not None and cfg.quantized_filter_points
+        cleanup = dict(fill_holes=cfg.do_stabilize,
+                       smooth_iters=20 if cfg.do_smooth_borders else 0,
+                       lam=0.3, merge_decimals=6)
+        if pre:
+            bias_tbl = BiasTable(bias_field, lo_, cell, dev) if bias_field is not None else None
+            threshold = cfg.face_filter_mult / R + (0.0 if bias_tbl is not None else surf_bias)
+            qstep = (hi_ - lo_) / 65535.0
+            two_tier, band = cfg.two_tier_filter, None
+            if two_tier:
+                band = (cfg.two_tier_band if cfg.two_tier_band is not None
+                        else udf_fn.two_tier_band())
+                # filter points sit on the surface, where |udf − thr| is
+                # small: a wide band re-checks most of them and one f32 pass
+                # is cheaper
+                two_tier = band < 0.25 * threshold
+            stats.update(ff_band=band, ff_threshold=threshold, ff_two_tier=two_tier)
+            qverts = np.clip(np.rint((mesh.vertices - lo_) * (1.0 / qstep)), 0,
+                             65535).astype(np.uint16)
+            qmids, einv, ea, eb = native.face_filter_prep_q16(mesh.vertices, mesh.faces, lo_,
+                                                              1.0 / qstep)
+            times["ff_prep"] = round(time.perf_counter() - t0, 3)
+            q = torch.from_numpy(np.concatenate([qverts, qmids]).astype(np.int32)).to(dev)
+            if two_tier:
+                t1 = time.perf_counter()
+                below, sure = udf_fn.below2t_q16(q, threshold, lo_, qstep, band, bias_tbl)
+                uns = torch.nonzero(~sure)[:, 0]
+                stats["ff_unsure"] = int(len(uns))
+                if len(uns):
+                    below[uns] = udf_fn.below_q16(q[uns], threshold, lo_, qstep, bias_tbl)
+                times["ff_t1_t2"] = round(time.perf_counter() - t1, 3)
+            else:
+                below = udf_fn.below_q16(q, threshold, lo_, qstep, bias_tbl)
+            ok = below.to(torch.uint8).cpu().numpy()
+            times["face_filter"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            v, f = native.finalize_mesh_pre(mesh.vertices, mesh.faces, ok, einv, ea, eb,
+                                            **cleanup)
         else:
-            below = udf_fn.below_q16(q, threshold, lo_, qstep, bias_tbl)
-        ok = below.to(torch.uint8).cpu().numpy()
-        times["face_filter"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        v, f = native.finalize_mesh_pre(
-            mesh.vertices, mesh.faces, ok, einv, ea, eb,
-            fill_holes=True, smooth_iters=20,
-            lam=0.3, merge_decimals=6,
-        )
+            # exact f32 points, the bias field looked up point by point
+            bias_at = make_field_bias_at(bias_field, lo_, cell) if bias_field is not None else None
+            threshold = cfg.face_filter_mult / R + (0.0 if bias_at is not None else surf_bias)
+            stats.update(ff_band=None, ff_threshold=threshold, ff_two_tier=False)
+            pts, einv = native.face_filter_prep(mesh.vertices, mesh.faces)
+            times["ff_prep"] = round(time.perf_counter() - t0, 3)
+            ok = _below_f32(udf_fn, pts, threshold, cfg.max_batch, bias_at, dev)
+            times["face_filter"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            v, f = native.finalize_mesh(mesh.vertices, mesh.faces, ok, einv, **cleanup)
         mesh = Mesh(v, f)
         if cfg.final_laplacian_iters:
             mesh = laplacian_smooth(mesh, iterations=cfg.final_laplacian_iters, lam=0.5)
         if cfg.min_component_faces:
             mesh = filter_small_components(mesh, cfg.min_component_faces)
+        times["cleanup"] = time.perf_counter() - t0
+    elif len(mesh.faces):
+        # no filter: the numpy cleanup chain (MT output is duplicate-free)
+        t0 = time.perf_counter()
+        if cfg.do_stabilize:
+            mesh = stabilize(mesh, assume_clean=True)
+        if cfg.do_smooth_borders:
+            mesh = smooth_borders(mesh, iterations=20, lam=0.3)
+        if cfg.final_laplacian_iters:
+            mesh = laplacian_smooth(mesh, iterations=cfg.final_laplacian_iters, lam=0.5)
+        if cfg.min_component_faces:
+            mesh = filter_small_components(mesh, cfg.min_component_faces)
+        mesh = merge_duplicate_vertices(mesh)
         times["cleanup"] = time.perf_counter() - t0
 
     if return_stats:
@@ -293,23 +423,22 @@ def get_mesh_from_udf(udf_fn: UdfEvaluator, cfg: MeshExtractionConfig = MeshExtr
 
 
 @torch.no_grad()
-def get_watertight_mesh_from_udf(udf_fn: UdfEvaluator,
-                                 cfg: MeshExtractionConfig = MeshExtractionConfig(),
+def get_watertight_mesh_from_udf(udf_fn, cfg: MeshExtractionConfig = MeshExtractionConfig(),
                                  iso: float = 0.01, return_stats: bool = False):
     """Evaluator → the iso-`iso` shell of the UDF: the grid fill (K1 f32,
     with `cfg.surface_bias`, so that iso applies to the bias-corrected
     field), signed marching tetrahedra on the host, the component with the
     longest bounding-box diagonal, renormalised to [-1, 1]. The shell of an
     open sheet is cut by the domain wall, so it may have a boundary."""
-    dev = resolve_device(udf_fn.device)
+    dev = _device_of(udf_fn)
     times = {}
     t0 = time.perf_counter()
-    gf = GridFiller(cfg.resolution, DOMAIN, max_batch=cfg.max_batch, max_dist=cfg.max_dist,
-                    surface_bias=cfg.surface_bias, device=dev)
+    gf = GridFiller(cfg.resolution, cfg.coords_range, max_batch=cfg.max_batch,
+                    max_dist=cfg.max_dist, surface_bias=cfg.surface_bias, device=dev)
     grid = gf.fill(udf_fn)
     times["grid_fill"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    mesh = marching_tetrahedra(grid, iso=iso, coords_range=DOMAIN)
+    mesh = marching_tetrahedra(grid, iso=iso, coords_range=cfg.coords_range)
     times["marching"] = time.perf_counter() - t0
     raw_faces = len(mesh.faces)
     t0 = time.perf_counter()

@@ -47,7 +47,7 @@ def test_depth_two_equals_depth_one(decoders, latents, watertight):
     _assert_same(runs[1], runs[2])
     # in input order: the k-th mesh is the k-th latent's
     extract = get_watertight_mesh_from_udf if watertight else get_mesh_from_udf
-    one = extract(next(_fns(dec, latents[1:])), CFG)
+    one = extract(next(_fns(dec, latents[1:])), cfg=CFG)
     _assert_same([runs[2][1]], [one])
     assert len({len(m.faces) for m in runs[2]}) == 3  # the latents give three meshes
 

@@ -259,7 +259,7 @@ def test_entry_points_turn_tf32_off(cuda):
         udf_fn = make_udf_fn(_decoder(64, 1), None, lat[0], MAX_DIST)
         assert _tf32_off()
         _allow_tf32(True)
-        get_mesh_from_udf(udf_fn, MeshExtractionConfig(resolution=32, max_dist=MAX_DIST))
+        get_mesh_from_udf(udf_fn, cfg=MeshExtractionConfig(resolution=32, max_dist=MAX_DIST))
         assert _tf32_off()
     finally:
         _allow_tf32(False)
@@ -502,3 +502,61 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
     assert not torch.equal(ae.state_dict()["decoder.bn.bn.running_var"],
                            before["decoder.bn.bn.running_var"])
     assert sum(kernel_calls()["launches"].values()) == launches
+
+
+def _fixture_evaluator(cuda):
+    from surfd_tpu_torch.pipelines import make_udf_fn
+
+    fx = load_sheet_fixture(FIXTURE)
+    dec = CbnDecoder(len(fx["latent"]), fx["hidden_dim"], fx["num_hidden_layers"])
+    dec.load_state_dict(strip_prefix(fx["state_dict"], "decoder."), strict=True)
+    return make_udf_fn(dec, None, torch.from_numpy(fx["latent"]), fx["max_dist"], device=cuda)
+
+
+@pytest.mark.cuda
+def test_two_tier_filter_engaged_on_fixture_is_bit_equal(cuda):
+    """The sheet fixture at 32³, where the calibrated band is under a quarter
+    of the threshold: tier 1 runs on K1 bf16 and the mesh equals the
+    single-tier run's bit for bit."""
+    from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf
+
+    udf_fn = _fixture_evaluator(cuda)
+    kw = dict(resolution=32, surface_bias="auto")
+    bf16 = dk.folded_udf.launches["bf16"]
+    two, stats = get_mesh_from_udf(udf_fn, cfg=MeshExtractionConfig(**kw), return_stats=True)
+    assert stats["ff_two_tier"] and stats["ff_unsure"] > 0
+    assert dk.folded_udf.launches["bf16"] > bf16
+    one = get_mesh_from_udf(udf_fn, cfg=MeshExtractionConfig(**kw, two_tier_filter=False))
+    np.testing.assert_array_equal(two.vertices, one.vertices)
+    np.testing.assert_array_equal(two.faces, one.faces)
+
+
+@pytest.mark.cuda
+def test_marching_oracles_on_fixture(cuda):
+    """The fixture's 96³ grid with dense autograd gradients (fill_gradients
+    over make_grad_fn) read as settled int8 units: numpy marching equals the native
+    passes, and those equal native marching on the lazy int8 gradients by
+    grid id: equal faces, vertex Hausdorff < 1e-5."""
+    from surfd_tpu_torch.geometry import (
+        GridFiller,
+        hausdorff_distance,
+        make_grad_fn,
+        marching_tetrahedra_udf,
+    )
+    from surfd_tpu_torch.geometry.marching import settled_int8_units
+
+    R = 96
+    voxel = 2.0 / (R - 1)
+    udf_fn = _fixture_evaluator(cuda)
+    gf = GridFiller(R, max_dist=udf_fn.max_dist, surface_bias="auto", device=cuda)
+    grid, stats = gf.fill(udf_fn, return_stats=True)
+    dense = gf.fill_gradients(make_grad_fn(udf_fn), grid)
+    g8 = settled_int8_units(dense)
+    m_np = marching_tetrahedra_udf(grid, g8, use_native=False)
+    m_cc = marching_tetrahedra_udf(grid, g8)
+    lazy = lambda gids: udf_fn.grad_i8_gid(gids, R, -1.0, voxel)
+    lazy.by_gid = True
+    m_lazy = marching_tetrahedra_udf(grid, lazy, active_blocks=(stats["ab"], stats["block"]))
+    assert len(m_np.faces) == len(m_cc.faces) == len(m_lazy.faces) > 10_000
+    assert hausdorff_distance(m_np.vertices, m_cc.vertices) < 1e-5
+    assert hausdorff_distance(m_lazy.vertices, m_cc.vertices) < 1e-5
