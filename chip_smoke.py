@@ -103,13 +103,28 @@ Phases, each fatal on failure:
      its npz pair equal to its last checkpoint, and export_meshes at 128^3
      reading the run (K1 f32 and bf16 launched); no hand-written kernel runs
      in the train step itself;
-  10. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
+  10. data parallel and the JAX package's last modules (phase `parallel`):
+     a world-1 NCCL process group and make_mesh(); phase 8's 3 train steps
+     under DDP against the same steps without it (TRAIN_BARS; bit-equality
+     reported beside the plain run's own repeat), the DDP and plain steps
+     timed in turns (16 K2 and 16 K2-bwd launches a step); the sheet at
+     256^3 with cfg.mesh against the unsharded run (faces equal, vertices <=
+     1e-6, K1 f32 launches equal) and the batch generator at depth 2 on the
+     mesh; train_diffusion (10 steps) and generate_uncond --data_parallel
+     under `torch.distributed.run --standalone --nproc_per_node 1`;
+     classifier guidance of the full-width MDM by the default EncoderUNet1D
+     over 50 DDPM steps against the port's CPU run (<= 1e-3; K2 23 and K2-bwd
+     7 launches a step, the guidance gradient through K2-bwd; the
+     classifier's attention output detached, a planted fault, must fail);
+     the spatial-transformer UNet and the grid AE against the CPU run
+     (VESTIGIAL_BARS; TF32 on must fail them; no hand-written kernel);
+  11. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
      turns with SDPA's;
-  11. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
+  12. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
      (DDIM, guidance 2.5, two extractions at a time) and generate_uncond
      (PLMS, watertight).
 
-Phases 3-9 and 4b are the main path: each runs with the launch counts set
+Phases 3-10 and 4b are the main path: each runs with the launch counts set
 to 0 just before it and read just after, and no plain version may run in
 them.
 
@@ -145,9 +160,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "surfd_tpu", "assets", "bench_sheet_decoder.npz")
 PHASES = ("build", "kernels", "sample", "extract", "settings", "generate", "recon", "condition",
-          "train", "ae", "host", "cli")  # default
+          "train", "ae", "parallel", "host", "cli")  # default
 # counted: launches, no plain version
-MAIN_PATH = ("sample", "extract", "settings", "generate", "recon", "condition", "train", "ae")
+MAIN_PATH = ("sample", "extract", "settings", "generate", "recon", "condition", "train", "ae",
+             "parallel")
 EXTRA_PHASES = ("profile", "bars", "parity")
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type.
@@ -1875,11 +1891,11 @@ def train_inputs(L: int = 32, steps: int = TRAIN_STEPS, seed: int = 30):
     return out
 
 
-def train_run(dev, init: dict) -> dict:
+def train_run(dev, init: dict, mesh=None) -> dict:
     """The category MDM from the state dict `init` trained TRAIN_STEPS steps
     on `dev` from train_inputs(), EMA on: each step's loss, step 1's
     gradients (on the CPU; a parameter that got none reads zeros), then the
-    params and EMA."""
+    params and EMA. `mesh`: data parallel (DDP) over its 'data' axis."""
     from surfd_tpu_torch.diffusion import named_schedule
     from surfd_tpu_torch.models import MDM
     from surfd_tpu_torch.training import create_train_state, make_optimizer, make_train_step
@@ -1888,7 +1904,8 @@ def train_run(dev, init: dict) -> dict:
     mdm.load_state_dict(init, strict=True)
     mdm.to(dev)
     state = create_train_state(mdm, make_optimizer(mdm.parameters(), 1e-4), ema_rate=TRAIN_EMA)
-    step = make_train_step(mdm, named_schedule("cosine", 1000), cond_mask_prob=TRAIN_COND_P)
+    step = make_train_step(mdm, named_schedule("cosine", 1000), cond_mask_prob=TRAIN_COND_P,
+                           mesh=mesh)
     out = {"loss": []}
     for k, (batch, t, w, noise, drop) in enumerate(train_inputs()):
         if k == 0:
@@ -1978,12 +1995,12 @@ def _k2_counts() -> tuple:
 
 
 def time_train_steps(mdm, dev, cond: str, L: int, steps: int, label: str,
-                     profiled: bool = False) -> dict:
+                     profiled: bool = False, mesh=None) -> dict:
     """`steps` train steps of `mdm` through DiffusionTrainer.run (numpy
     batches, uniform timesteps, noise and masks from a CUDA generator), after
     5 steps of warm-up: ms a step on the host clock, peak memory allocated,
     K2 and K2-bwd launches (exactly 16 each a step); with `profiled`, the
-    device busy share of 10 more steps under torch.profiler."""
+    device busy share of 10 more steps under torch.profiler; `mesh`: DDP."""
     from surfd_tpu_torch.diffusion import named_schedule
     from surfd_tpu_torch.training import (
         DiffusionTrainConfig,
@@ -2007,7 +2024,7 @@ def time_train_steps(mdm, dev, cond: str, L: int, steps: int, label: str,
                                save_interval=10**9, stall_exit_s=0)
     state = create_train_state(mdm, make_optimizer(mdm.parameters(), 1e-4))
     trainer = DiffusionTrainer(cfg, mdm, named_schedule("cosine", 1000), state, batches(),
-                               generator=torch.Generator(device=dev).manual_seed(11))
+                               generator=torch.Generator(device=dev).manual_seed(11), mesh=mesh)
     trainer.run(5)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2588,6 +2605,334 @@ def phase_ae(dev, ref):
     return out
 
 
+# Data parallel and the last model modules (phase parallel): one process and
+# one card, so the process group has world 1 (NCCL); worlds of 2 run on the
+# CPU over gloo (tests/test_torch_parallel*.py).
+PARALLEL_TIMED = 30  # DDP and plain train steps timed, in turns
+PARALLEL_R = 256  # the sharded sheet extraction
+GUIDE_STEPS = "50"  # classifier guidance: cosine 1000 respaced to 50 DDPM steps
+GUIDE_CLASSES = (2, 7)
+GUIDE_SCALE = 1.0  # moves the latents by ~0.96 (max abs) from the unguided run on the CPU
+GUIDE_BAR = 1e-3  # card vs the port's CPU run, phase generate's bar
+# K2 / K2-bwd launches a guided DDPM step: the MDM's 16 attention blocks, and
+# the classifier's 7 (T/c 32/28 twice, 16/56 twice, 8/112 twice, 4/112 once)
+# forward under autograd and backward
+GUIDE_K2, GUIDE_K2_BWD = 16 + 7, 7
+# (f) card vs the port's CPU run: max abs over max(1, max |CPU|). Readings on
+# an NVIDIA H100 80GB HBM3 at 700 W, sound / TF32 on: the transformer UNet
+# 4.19e-6 / 1.26e-3, the grid AE's latent 1.96e-6 / 9.73e-4, its
+# reconstruction 4.34e-6 / 1.49e-3. Each bar sits between the two.
+VESTIGIAL_BARS = {"transformer_unet": 1e-4, "grid_ae_latent": 1e-4, "grid_ae": 1e-4}
+
+
+def seeded_classifier():
+    """EncoderUNet1D at its defaults (224 channels, mult (1,2,4,4), attention
+    at (4,2,1), 8 heads, the adaptive pool) over the 9 garment classes, LeCun
+    weights from seed 12, on the CPU."""
+    from surfd_tpu_torch.models import EncoderUNet1D
+
+    return EncoderUNet1D(out_channels=9).random_init_(torch.Generator().manual_seed(12)).eval()
+
+
+def guidance_denoiser():
+    """The unconditional full-width MDM of phase sample (seed 0), on the CPU."""
+    from surfd_tpu_torch.models import MDM
+
+    mdm = MDM(cond_mode="no_cond")
+    mdm.Unet.random_init_(torch.Generator().manual_seed(0))
+    return mdm.eval()
+
+
+def guided_sample(mdm, clf, dev):
+    """(2, 32) latents of p_sample_loop over GUIDE_STEPS with the classifier's
+    cond_fn (toward GUIDE_CLASSES; clf None: unguided) under torch.no_grad(),
+    as the samplers run it; injected noise (numpy seed 21). Returns the
+    latents and the wall."""
+    from surfd_tpu_torch.diffusion import (
+        named_beta_schedule,
+        p_sample_loop,
+        space_timesteps,
+        spaced_schedule,
+    )
+    from surfd_tpu_torch.models import make_classifier_cond_fn
+
+    sched = spaced_schedule(named_beta_schedule("cosine", 1000), space_timesteps(1000, GUIDE_STEPS))
+    rng = np.random.default_rng(21)
+    noise = torch.from_numpy(rng.normal(size=(2, 32, 1)).astype(np.float32)).to(dev)
+    steps = torch.from_numpy(rng.normal(size=(sched.num_timesteps, 2, 32, 1)).astype(np.float32))
+    cond_fn = None if clf is None else make_classifier_cond_fn(
+        clf, torch.tensor(GUIDE_CLASSES, device=dev), GUIDE_SCALE)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lat = p_sample_loop(sched, mdm, (2, 32, 1), device=dev, noise=noise,
+                            step_noise=steps.to(dev), cond_fn=cond_fn)
+    _sync(dev)
+    return lat[..., 0], time.perf_counter() - t0
+
+
+def vestigial_models():
+    """(f)'s two modules with seeded weights, on the CPU, and their inputs:
+    UNet1D with the spatial transformer (224 channels, context 512, depth 1)
+    at B 2, latent 32, a (2, 1, 512) context; GridAutoencoder (base 32, mult
+    (1,2,4), latent 8) on one 32^3 grid."""
+    from surfd_tpu_torch.models import GridAutoencoder, UNet1D
+
+    g = torch.Generator().manual_seed(13)
+    unet = UNet1D(context_dim=512, use_spatial_transformer=True, transformer_depth=1)
+    unet.random_init_(g)
+    ae = GridAutoencoder(base_channels=32, channel_mult=(1, 2, 4), latent_channels=8)
+    ae.random_init_(g)
+    rng = np.random.default_rng(22)
+    inputs = {"x": rng.normal(size=(2, 1, 32)), "t": np.array([10, 900]),
+              "context": rng.normal(size=(2, 1, 512)),
+              "grid": np.abs(rng.normal(size=(1, 1, 32, 32, 32))) * 0.1}
+    return unet.eval(), ae.eval(), {k: torch.from_numpy(np.asarray(
+        v, np.int64 if k == "t" else np.float32)) for k, v in inputs.items()}
+
+
+def vestigial_run(unet, ae, inp, dev) -> dict:
+    """The transformer UNet's output and the grid AE's latent and
+    reconstruction on `dev`, back on the CPU."""
+    i = {k: v.to(dev) for k, v in inp.items()}
+    with torch.no_grad():
+        z = ae.to(dev).encode(i["grid"])
+        out = {"transformer_unet": unet.to(dev)(i["x"], i["t"], context=i["context"]),
+               "grid_ae_latent": z, "grid_ae": ae.decode(z)}
+    _sync(dev)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def parallel_reference() -> dict:
+    """The port's CPU runs of phase parallel's (e) and (f), outside the
+    counted paths."""
+    t0 = time.perf_counter()
+    lat, _ = guided_sample(guidance_denoiser(), seeded_classifier(), torch.device("cpu"))
+    unet, ae, inp = vestigial_models()
+    return {"guided": lat, "vestigial": vestigial_run(unet, ae, inp, torch.device("cpu")),
+            "s": time.perf_counter() - t0}
+
+
+def _rel_gap(got, want) -> float:
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def run_torchrun(module: str, argv: list, label: str):
+    """One CLI of the port under `torch.distributed.run --standalone
+    --nproc_per_node 1` in a subprocess; its wall, stderr lines and kernel
+    launches (the `kernel calls:` line), which go into CHILD_LAUNCHES. No
+    plain-version call may run."""
+    from surfd_tpu_torch.cli._common import KERNEL_CALLS
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node", "1", "-m", f"surfd_tpu_torch.cli.{module}", *argv],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"torchrun {module} failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    lines = r.stderr.strip().splitlines()
+    calls = [x for x in lines if x.startswith(KERNEL_CALLS)]
+    if len(calls) != 1:
+        raise RuntimeError(f"torchrun {module}: {len(calls)} kernel-calls lines")
+    calls = json.loads(calls[0].removeprefix(KERNEL_CALLS))
+    for line in lines[-4:]:
+        log(f"[{label}]   " + line)
+    if calls["plain_calls"]:
+        raise RuntimeError(f"{module}: {calls['plain_calls']} plain-version calls")
+    CHILD_LAUNCHES.update(calls["launches"])
+    return dt, lines, calls["launches"]
+
+
+def phase_parallel(dev, ref):
+    """Data parallel over torch.distributed and the JAX package's last
+    modules: (a) a world-1 NCCL process group on a FileStore, make_mesh();
+    (b) DDP training of phase train's category MDM (its init, batches, t,
+    weights, noise, masks): 3 steps against the same steps without the mesh
+    within TRAIN_BARS, then the DDP step and the plain one timed in turns
+    (16 K2 and 16 K2-bwd launches a step); (c) the sheet at 256^3 with
+    cfg.mesh against the unsharded run: faces equal, vertices <= 1e-6, K1 f32
+    launches equal; (d) train_diffusion (10 steps on phase recon's corpus)
+    and generate_uncond --data_parallel (128^3, the planted sheet decoder)
+    under torchrun; (e) classifier guidance of the full-width MDM by the
+    default EncoderUNet1D over 50 DDPM steps against the port's CPU run
+    (`ref`, GUIDE_BAR), K2 and K2-bwd launches exact, the classifier's
+    attention output detached failing the bar; (f) the spatial-transformer
+    UNet and the grid AE against the CPU run, TF32 on failing their bars,
+    no hand-written kernel launched."""
+    from unittest import mock
+
+    from surfd_tpu_torch import parallel
+    from surfd_tpu_torch.models import MDM, unet1d
+    from surfd_tpu_torch.ops import attention_kernel as ak
+    from surfd_tpu_torch.parallel.multihost import shutdown
+    from surfd_tpu_torch.pipelines import (
+        MeshExtractionConfig,
+        generate_meshes_pipelined,
+        make_udf_fn,
+    )
+    from surfd_tpu_torch.utils import use_full_f32
+
+    out = {"cpu_reference_s": ref["s"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        parallel.initialize(f"file://{os.path.join(tmp, 'store')}", 1, 0, device=dev,
+                            timeout_s=300)
+        mesh = parallel.make_mesh()
+        log(f"[parallel] (a) NCCL group of {parallel.process_count()}, mesh "
+            f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names} on {mesh.device_type}: "
+            f"{time.perf_counter() - t0:.2f}s")
+        try:
+            # (b) DDP training
+            init = category_mdm().state_dict()
+            plain = train_run(dev, init)
+            k0 = _k2_counts()
+            ddp = train_run(dev, init, mesh)
+            k1 = _k2_counts()
+            plain2 = train_run(dev, init)  # the card's own run-to-run spread
+
+            def bit_equal(a, b):
+                return a["loss"] == b["loss"] and all(
+                    torch.equal(a[k][n], b[k][n]) for k in ("grads", "params", "ema")
+                    for n in b[k])
+
+            gaps = train_gaps(ddp, plain)
+            out["ddp_gaps"], out["plain_repeat_gaps"] = gaps, train_gaps(plain2, plain)
+            out["ddp_bit_equal"], out["plain_bit_equal"] = (bit_equal(ddp, plain),
+                                                           bit_equal(plain2, plain))
+            log(f"[parallel] (b) DDP vs plain, 3 steps: losses {ddp['loss']} vs {plain['loss']}; "
+                f"bit-equal {out['ddp_bit_equal']} (plain vs plain {out['plain_bit_equal']}, "
+                f"gaps {json.dumps(out['plain_repeat_gaps'])}); gaps {json.dumps(gaps)}; "
+                f"K2 {k1[0] - k0[0]}, K2-bwd {k1[1] - k0[1]} launches")
+            if not within_train_bars(gaps) or gaps["attention_grads_zero"]:
+                raise RuntimeError("parallel: the DDP steps are off the plain steps' bars")
+            if (k1[0] - k0[0], k1[1] - k0[1]) != (16 * (TRAIN_STEPS + 1),) * 2:
+                raise RuntimeError("parallel: DDP steps launched K2 / K2-bwd off 16 a pass")
+            timed = {}
+            for name, m in (("plain", None), ("ddp", mesh), ("plain", None), ("ddp", mesh)):
+                mdm = MDM(cond_mode="category", num_actions=9)
+                mdm.load_state_dict(init)
+                r = time_train_steps(mdm.to(dev), dev, "category", 32, PARALLEL_TIMED,
+                                     f"{name}, category MDM, latent 32, B 2", mesh=m)
+                timed.setdefault(name, []).append(r["ms_per_step"])
+            out["timed_ms"] = timed
+            del mdm
+
+            # (c) the sharded extraction
+            dec, fx = load_fixture_decoder(dev)
+            runs = {}
+            for name, m in (("unsharded", None), ("sharded", mesh)):
+                fn = make_udf_fn(dec, None, torch.from_numpy(fx["latent"]), fx["max_dist"],
+                                 device=dev)
+                runs[name] = _extract(fn, dev, resolution=PARALLEL_R, surface_bias="auto",
+                                      mesh=m)
+            (a, sa, ta, ka), (b, sb, tb, kb) = runs["unsharded"], runs["sharded"]
+            vgap = float(np.abs(a.vertices - b.vertices).max()) if len(a.vertices) == len(
+                b.vertices) else float("inf")
+            out["extract"] = {"faces": len(b.faces), "vertex_gap": vgap, "s": (ta, tb),
+                              "k1": (ka, kb)}
+            log(f"[parallel] (c) sheet at {PARALLEL_R}^3: unsharded {len(a.faces)} faces "
+                f"{ta:.2f}s K1 {ka}, sharded {len(b.faces)} faces {tb:.2f}s K1 {kb}, "
+                f"vertices max abs {vgap:.3g}")
+            if not (np.array_equal(a.faces, b.faces) and vgap <= 1e-6 and ka == kb):
+                raise RuntimeError("parallel: the sharded extraction differs from the unsharded")
+            # the batch generator at depth 2 on the mesh: each slot on its own fork
+            lats = [torch.from_numpy(fx["latent"]), torch.from_numpy(0.9 * fx["latent"])]
+            cfg = MeshExtractionConfig(resolution=128, surface_bias="auto")
+            meshes = {}
+            for name, depth, c in (("depth 1", 1, cfg),
+                                   ("depth 2 sharded", 2, dataclasses.replace(cfg, mesh=mesh))):
+                fns = (make_udf_fn(dec, None, lat, fx["max_dist"], device=dev) for lat in lats)
+                meshes[name] = list(generate_meshes_pipelined(fns, c, depth=depth))
+            if not all(np.array_equal(p.faces, q.faces) and np.array_equal(p.vertices, q.vertices)
+                       for p, q in zip(*meshes.values())):
+                raise RuntimeError("parallel: the sharded depth-2 batch differs from depth 1")
+            log(f"[parallel] (c) the batch generator at 128^3, depth 2 on the mesh: "
+                f"{[len(m.faces) for m in meshes['depth 2 sharded']]} faces, equal to depth 1")
+        finally:
+            shutdown()
+
+        # (d) the CLIs under torchrun
+        t0 = time.perf_counter()
+        write_recon_corpus(tmp, dev)
+        write_class_list(os.path.join(tmp, "classes.txt"))
+        write_planted_decoder(os.path.join(tmp, "planted"), latent_size=32)
+        save = os.path.join(tmp, "run")
+        dt, lines, launches = run_torchrun("train_diffusion", [
+            "--data_root", os.path.join(tmp, "data", "test"), "--ae_dir", os.path.join(tmp, "ae"),
+            "--save_dir", save, "--cond_mode", "category", "--category_list",
+            os.path.join(tmp, "classes.txt"), "--precompute_latents", "--num_steps", "10",
+            "--save_interval", "10", "--log_interval", "5"], "parallel")
+        k2 = sum(n for k, n in launches.items() if k.startswith("qkv_attention_T"))
+        bwd = sum(n for k, n in launches.items() if k.startswith("qkv_attention_bwd"))
+        ckpts = sorted(os.listdir(os.path.join(save, "ckpt")))
+        if (k2, bwd) != (160, 160) or ckpts != ["step_000000010.pt"]:
+            raise RuntimeError(f"torchrun train_diffusion: K2 {k2}, K2-bwd {bwd}, wrote {ckpts}")
+        gen = os.path.join(tmp, "gen")
+        dt2, lines2, _ = run_torchrun("generate_uncond", [
+            "--random-init", "--ae_dir", os.path.join(tmp, "planted"), "--data_parallel",
+            "--sampler", "ddim", "--timestep_respacing", "ddim50", "--num_samples", "1",
+            "--resolution", "128", "--output_dir", gen], "parallel")
+        written = sorted(os.listdir(gen))
+        if written != ["uncond_0.obj"] or not any("--data_parallel: one process" in x
+                                                  for x in lines2):
+            raise RuntimeError(f"torchrun generate_uncond --data_parallel wrote {written}")
+        out["torchrun_s"] = (dt, dt2)
+        log(f"[parallel] (d) torchrun train_diffusion 10 steps {dt:.1f}s (K2 {k2}, K2-bwd "
+            f"{bwd}, {ckpts}); generate_uncond --data_parallel {dt2:.1f}s "
+            f"({os.path.getsize(os.path.join(gen, written[0]))} bytes of OBJ); phase recon's "
+            f"corpus and both runs {time.perf_counter() - t0:.1f}s")
+
+    # (e) classifier guidance
+    mdm, clf = guidance_denoiser().to(dev), seeded_classifier().to(dev)
+    k0 = _k2_counts()
+    lat, dt = guided_sample(mdm, clf, dev)
+    k1 = _k2_counts()
+    n_steps = int(GUIDE_STEPS)
+    gap = float((lat.cpu() - ref["guided"]).abs().max())
+    unguided, dt_plain = guided_sample(mdm, None, dev)
+    with mock.patch.object(unet1d, "qkv_attention",
+                           lambda qkv, h: ak.qkv_attention(qkv.detach(), h)):
+        detached, _ = guided_sample(mdm, clf, dev)
+    fault = float((detached.cpu() - ref["guided"]).abs().max())
+    out["guided"] = {"gap": gap, "fault_gap": fault, "s": dt, "s_unguided": dt_plain,
+                     "k2": k1[0] - k0[0], "k2_bwd": k1[1] - k0[1],
+                     "shift": float((lat - unguided).abs().max())}
+    log(f"[parallel] (e) classifier-guided DDPM, 50 steps, B 2: {dt:.2f}s "
+        f"({1e3 * dt / n_steps:.2f} ms a step; unguided {1e3 * dt_plain / n_steps:.2f} ms a step); "
+        f"card vs CPU {gap:.3g} (bar {GUIDE_BAR}); guidance moved the latents "
+        f"{out['guided']['shift']:.3g}; K2 {k1[0] - k0[0]}, K2-bwd {k1[1] - k0[1]} launches; "
+        f"planted fault, the classifier's attention output detached: {fault:.3g}")
+    if gap > GUIDE_BAR or not fault > GUIDE_BAR:
+        raise RuntimeError("parallel: guided sampling off its bar, or the bar passes the fault")
+    if (k1[0] - k0[0], k1[1] - k0[1]) != (GUIDE_K2 * n_steps, GUIDE_K2_BWD * n_steps):
+        raise RuntimeError(f"parallel: guided sampling launched K2 {k1[0] - k0[0]}, K2-bwd "
+                           f"{k1[1] - k0[1]}; want {GUIDE_K2 * n_steps}, {GUIDE_K2_BWD * n_steps}")
+    del mdm, clf
+
+    # (f) the spatial-transformer UNet and the grid AE
+    unet, ae, inp = vestigial_models()
+    before = launch_counts()
+    got = vestigial_run(unet, ae, inp, dev)
+    if launch_counts() != before:
+        raise RuntimeError("parallel: (f) launched a hand-written kernel")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = vestigial_run(unet, ae, inp, dev)
+    finally:
+        use_full_f32()
+    want = ref["vestigial"]
+    gaps = {k: _rel_gap(got[k], want[k]) for k in want}
+    faults = {k: _rel_gap(tf32[k], want[k]) for k in want}
+    out["vestigial"] = {"gaps": gaps, "tf32": faults}
+    log(f"[parallel] (f) card vs CPU, max abs / max(1, max |CPU|): {json.dumps(gaps)}; TF32 on: "
+        f"{json.dumps(faults)} (bars {json.dumps(VESTIGIAL_BARS)}); no hand-written kernel")
+    for k, bar in VESTIGIAL_BARS.items():
+        if gaps[k] > bar or not faults[k] > bar:
+            raise RuntimeError(f"parallel: {k} off its bar, or the bar passes TF32")
+    return out
+
+
 def phase_parity(dev):
     """The sheet fixture at 128^3 (not part of the default run): the card's
     mesh against the port's own CPU mesh (faces within 1 %, symmetric mean
@@ -2696,12 +3041,16 @@ def main() -> int:
     if "ae" in phases:  # the CPU reference of the AE steps
         ae_ref = ae_reference()
         log(f"[ae] CPU reference, 4 steps ({torch.get_num_threads()} threads): {ae_ref['s']:.2f}s")
+    if "parallel" in phases:  # the CPU reference of guided sampling and the last modules
+        par_ref = parallel_reference()
+        log(f"[parallel] CPU reference ({torch.get_num_threads()} threads): {par_ref['s']:.2f}s")
     paths = {"sample": lambda: phase_sample(dev), "extract": lambda: phase_extract(dev),
              "settings": lambda: phase_settings(dev),
              "generate": lambda: phase_generate(dev, cfg_ref),
              "recon": lambda: phase_recon(dev, enc_ref),
              "condition": lambda: phase_condition(dev, cond_ref),
-             "train": lambda: phase_train(dev, train_ref), "ae": lambda: phase_ae(dev, ae_ref)}
+             "train": lambda: phase_train(dev, train_ref), "ae": lambda: phase_ae(dev, ae_ref),
+             "parallel": lambda: phase_parallel(dev, par_ref)}
     by_path = {}
     for name in MAIN_PATH:
         if name not in phases:

@@ -74,6 +74,9 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     ap.add_argument("--pipeline_depth", type=int, default=1,
                     help="extractions run at once, overlapping one's host passes with "
                     "another's device passes (pipelines/batch.py)")
+    ap.add_argument("--data_parallel", action="store_true",
+                    help="under torchrun, split the UDF grid-query stream over the processes' "
+                    "cards ('data' mesh axis); rank 0 writes the OBJs")
     ap.add_argument("--device", default="cuda", help="torch device (cuda by default)")
     return ap
 
@@ -282,12 +285,18 @@ def run_generation(args, cond_mode: str, context=None, action=None, tag: str = "
         make_udf_fn,
         sample_latents,
     )
+    from ..parallel import initialize, is_main_process, make_mesh, process_count, replicate
+    from ..parallel.multihost import shutdown
     from ..utils.device import resolve_device
 
     merge_saved_args(args, argv)
-    device = resolve_device(args.device)  # on CUDA: TF32 off
+    # torchrun's processes join a group (a no-op for one process or a caller's group)
+    joined = args.data_parallel and initialize(device=args.device)
+    device = resolve_device(args.device)  # on CUDA: TF32 off (cuda: this rank's card)
     sched = build_schedule(args)
     mdm = load_denoiser(args, cond_mode, device)
+    context = None if context is None else context.to(device)
+    action = None if action is None else action.to(device)
     if action is not None and not bool(((action >= 0) & (action < mdm.num_actions)).all()):
         raise ValueError(f"category ids must be in [0, {mdm.num_actions})")
     if context is not None and tuple(context.shape) != (args.num_samples, CLIP_DIM):
@@ -307,7 +316,21 @@ def run_generation(args, cond_mode: str, context=None, action=None, tag: str = "
     print(f"sampled {args.num_samples} latents ({args.sampler}) in "
           f"{time.perf_counter() - t0:.2f}s", file=sys.stderr)
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    mesh = None
+    if args.data_parallel:
+        world = process_count()
+        if world > 1:
+            mesh = make_mesh(data=world, model=1)
+            # every rank sampled; all extract rank 0's latents (the ranks'
+            # convolution sums are not promised equal)
+            latents = replicate(mesh, latents.contiguous())
+            print(f"grid-query stream sharded over {world} processes", file=sys.stderr)
+        else:
+            print("--data_parallel: one process; the grid-query stream runs unsharded",
+                  file=sys.stderr)
+    write = is_main_process()
+    if write:
+        os.makedirs(args.output_dir, exist_ok=True)
     cfg = MeshExtractionConfig(
         resolution=args.resolution,
         max_batch=args.max_batch,
@@ -315,6 +338,7 @@ def run_generation(args, cond_mode: str, context=None, action=None, tag: str = "
         min_component_faces=args.min_component_faces,
         final_laplacian_iters=args.smooth_iters,
         surface_bias=parse_surface_bias(args.surface_bias),
+        mesh=mesh,
     )
     fns = (make_udf_fn(decoder, None, latents[k], args.max_dist, device=device,
                        chunk=args.max_batch) for k in range(args.num_samples))
@@ -322,14 +346,17 @@ def run_generation(args, cond_mode: str, context=None, action=None, tag: str = "
     t0 = time.perf_counter()
     gen = generate_meshes_pipelined(fns, cfg, watertight=args.watertight,
                                     depth=args.pipeline_depth)
-    for k, mesh in enumerate(gen):
+    for k, surface in enumerate(gen):
         path = os.path.join(args.output_dir, f"{tag}_{k}.obj")
-        write_obj(path, mesh)
+        if write:
+            write_obj(path, surface)
         print(
-            f"[{k}] {len(mesh.vertices)} verts / {len(mesh.faces)} faces "
+            f"[{k}] {len(surface.vertices)} verts / {len(surface.faces)} faces "
             f"at t+{time.perf_counter() - t0:.2f}s → {path}",
             file=sys.stderr,
         )
         out_paths.append(path)
+    if joined:
+        shutdown()
     print_kernel_calls()
     return out_paths

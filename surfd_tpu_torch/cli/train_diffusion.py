@@ -1,9 +1,14 @@
 """Diffusion training CLI: the MDM on frozen-encoder latents, the START_X L1
 loss, AdamW with the staircase anneal, checkpoints with resume (optimizer
-state included). One device, CUDA by default:
+state included). CUDA by default:
 
   python -m surfd_tpu_torch.cli.train_diffusion --data_root DATA --cond_mode category \\
       --category_list garment_type_list.txt --ae_dir runs/ae --save_dir runs/diffusion
+
+Data parallel under torchrun, one process a card (each takes
+cuda:LOCAL_RANK): `torchrun --nproc_per_node N -m surfd_tpu_torch.cli.train_diffusion
+... --batch_size B` trains DDP over N ranks when N divides B (else each rank
+runs single-device, with a message); only rank 0 writes.
 
 Writes `args.json`, `metrics.jsonl`, `metrics.csv` and `ckpt/` under
 --save_dir; `generate_* --model_path <save_dir>` samples from the run. The
@@ -86,10 +91,18 @@ def load_encoder(args, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if os.path.exists(args.save_dir) and os.listdir(args.save_dir) and not (
-            args.resume or args.overwrite):
+    from ..parallel import broadcast_from_main, initialize, is_main_process, make_mesh
+    from ..parallel.multihost import process_count, shutdown
+
+    # a no-op unless torchrun started several processes (or a caller's group exists)
+    joined = initialize(device=args.device)
+    main_rank = is_main_process()
+    # rank 0's verdict, taken before any rank writes
+    if broadcast_from_main(os.path.exists(args.save_dir) and bool(os.listdir(args.save_dir))
+                           and not (args.resume or args.overwrite)):
         raise SystemExit(f"save_dir {args.save_dir} exists; pass --resume or --overwrite")
-    os.makedirs(args.save_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(args.save_dir, exist_ok=True)
 
     category_map = None
     if args.category_list:
@@ -100,8 +113,9 @@ def main(argv=None):
             args.num_actions = len(cat2name)
     if not args.num_actions:
         args.num_actions = 9
-    with open(os.path.join(args.save_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    if main_rank:
+        with open(os.path.join(args.save_dir, "args.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
 
     from ..cli._common import print_kernel_calls
     from ..data import DiffusionDataset, diffusion_batch_iterator, prefetch_iterator
@@ -144,8 +158,13 @@ def main(argv=None):
 
     lat_map = None
     if args.precompute_latents:
-        lat_map = precompute_latents(dataset, encode, args.num_points_pcd, np_rng,
-                                     cache_path=os.path.join(args.save_dir, "latents_cache.npz"))
+        if main_rank:
+            lat_map = precompute_latents(dataset, encode, args.num_points_pcd, np_rng,
+                                         cache_path=os.path.join(args.save_dir,
+                                                                 "latents_cache.npz"))
+        # every rank trains on rank 0's latents and continues its numpy stream
+        lat_map, rng_state = broadcast_from_main((lat_map, np_rng.bit_generator.state))
+        np_rng.bit_generator.state = rng_state
         print(f"precomputed {len(lat_map)} latents", file=sys.stderr)
         data_iter = latent_diffusion_batch_iterator(dataset, lat_map, args.batch_size, np_rng,
                                                     encode_text=encode_text)
@@ -174,10 +193,16 @@ def main(argv=None):
     if args.resume and ck.latest_step() is not None:
         ck.restore(state)
         print(f"resumed at step {state.step}", file=sys.stderr)
-    logger = Logger(args.save_dir, formats=("stdout", "jsonl", "csv"))
+    world = process_count()
+    # DP needs the batch to split evenly over 'data', as the reference's DDP does
+    mesh = make_mesh() if world > 1 and args.batch_size % world == 0 else None
+    if world > 1 and mesh is None:
+        print(f"batch {args.batch_size} not divisible by {world} devices; "
+              "running single-device", file=sys.stderr)
+    logger = Logger(args.save_dir, formats=("stdout", "jsonl", "csv")) if main_rank else None
     generator = torch.Generator(device=device).manual_seed(args.seed)
     trainer = DiffusionTrainer(cfg, mdm, sched, state, data_iter, encoder=step_encoder,
-                               checkpointer=ck, logger=logger, generator=generator)
+                               checkpointer=ck, logger=logger, generator=generator, mesh=mesh)
     if args.steps_per_call > 1:
         if lat_map is None:
             raise SystemExit("--steps_per_call > 1 requires --precompute_latents")
@@ -197,10 +222,13 @@ def main(argv=None):
                                     args.steps_per_call)
     else:
         final = trainer.run()
-    ck.save(final.step, final)  # writes are atomic: a step already on disk is whole
-    ck.wait()
-    logger.close()
+    if main_rank:
+        ck.save(final.step, final)  # writes are atomic: a step already on disk is whole
+        ck.wait()
+        logger.close()
     print(f"done at step {final.step}", file=sys.stderr)
+    if joined:
+        shutdown()
     print_kernel_calls()
     return final
 

@@ -88,26 +88,44 @@ def estimate_surface_bias(block_min, spacing: float) -> float:
     return min(b, 3.0 * spacing)
 
 
-def _chunked(fn, x: torch.Tensor, chunk: int) -> torch.Tensor:
-    """fn over fixed-size slices of x's first axis, concatenated."""
+def _chunked(fn, x: torch.Tensor, chunk: int, mesh=None) -> torch.Tensor:
+    """fn over fixed-size slices of x's first axis, concatenated.
+
+    With `mesh` (a DeviceMesh with a 'data' axis), the list of slices is
+    split over the data ranks: the slice count is padded to a multiple of
+    the rank count, as the JAX package pads its slabs, each rank evaluates
+    its contiguous share on its own device, and the results are gathered
+    back to every rank in order. The slices are the unsharded ones, so the
+    result is the unsharded result exactly. Every data rank must make the
+    call, with the same x."""
     if len(x) == 0:
         return fn(x)
-    return torch.cat([fn(x[i:i + chunk]) for i in range(0, len(x), chunk)])
+    starts = range(0, len(x), chunk)
+    if mesh is None:
+        return torch.cat([fn(x[i:i + chunk]) for i in starts])
+    from ..parallel.mesh import all_gather_rows, data_axis
+
+    _, rank, n = data_axis(mesh)
+    per = -(-len(starts) // n)
+    mine = starts[rank * per:(rank + 1) * per]
+    out = torch.cat([fn(x[i:i + chunk]) for i in mine]) if len(mine) else fn(x[:0])
+    return all_gather_rows(mesh, out)
 
 
-def eval_in_chunks(fn, pts, chunk: int, device=None) -> np.ndarray:
+def eval_in_chunks(fn, pts, chunk: int, device=None, mesh=None) -> np.ndarray:
     """fn over (P, ...) points in slices of `chunk`, returned as numpy.
 
     pts: a tensor, used where it lies, or a host array, moved to `device`,
     else to fn's own `device` attribute, else to CUDA (never silently the
     CPU). The JAX package pads the slices to a power-of-two count, which
     bounds its compiled executables; eager PyTorch compiles nothing, so the
-    last slice here is simply shorter.
+    last slice here is simply shorter. mesh: the slices are split over its
+    'data' ranks and gathered (`_chunked`); the result is the unsharded one.
     """
     if not torch.is_tensor(pts):
         dev = resolve_device(device if device is not None else getattr(fn, "device", None))
         pts = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
-    return _chunked(fn, pts, chunk).detach().cpu().numpy()
+    return _chunked(fn, pts, chunk, mesh).detach().cpu().numpy()
 
 
 GRAD_CHUNK = 2**16  # points per backward pass: it keeps every activation
@@ -148,8 +166,10 @@ class GridFiller:
         band_mult: float = 2.5,
         surface_bias: float | str = 0.0,
         device=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh  # optional DeviceMesh: the query stream is split over 'data'
         self.surface_bias = surface_bias
         self.N = resolution
         self.lo, self.hi = coords_range
@@ -184,7 +204,7 @@ class GridFiller:
         lo = torch.tensor(self.lo, dtype=torch.float32, device=dev)
 
         if B == 1:
-            grid = fill_grid_dense(udf_fn, N, (self.lo, self.hi), self.max_batch, dev)
+            grid = fill_grid_dense(udf_fn, N, (self.lo, self.hi), self.max_batch, dev, self.mesh)
             if self.surface_bias == "auto":
                 vb = 4 if N % 4 == 0 else (2 if N % 2 == 0 else 1)
                 nbv = N // vb
@@ -201,7 +221,7 @@ class GridFiller:
             return grid
 
         centers = torch.from_numpy(self._block_centers).to(dev)
-        coarse = _chunked(udf_fn, centers, self.max_batch).reshape(nb, nb, nb)
+        coarse = _chunked(udf_fn, centers, self.max_batch, self.mesh).reshape(nb, nb, nb)
         ab = torch.nonzero(coarse < self.threshold).to(torch.int32)  # (M, 3), C order
 
         B2 = self.sub_block
@@ -215,7 +235,7 @@ class GridFiller:
                 return udf_fn(vidx.reshape(-1, 3) * sp + lo)
 
             per = max(self.max_batch // n_sub**3, 1)
-            sub_vals = _chunked(sub_centers, ab, per).reshape(len(ab), n_sub, n_sub, n_sub)
+            sub_vals = _chunked(sub_centers, ab, per, self.mesh).reshape(len(ab), n_sub, n_sub, n_sub)
             sub_idx = torch.nonzero(sub_vals < sub_thr)
             ab = (ab[sub_idx[:, 0]] * n_sub + sub_idx[:, 1:]).to(torch.int32)
             B = B2
@@ -238,7 +258,7 @@ class GridFiller:
                 return fine(vidx.reshape(-1, 3).to(torch.float32) * sp + lo)
 
             per = max(self.max_batch // B**3, 1)
-            vals = _chunked(block_vals, ab, per).cpu().numpy()
+            vals = _chunked(block_vals, ab, per, self.mesh).cpu().numpy()
             M = len(ab32)
             qstep = np.float32(self.max_dist / 65535.0)
             if u16 is not None:
@@ -303,16 +323,17 @@ class GridFiller:
         x, rem = gids // (N * N), gids % (N * N)
         idx = np.stack([x, rem // N, rem % N], axis=-1).astype(np.float32)
         pts = idx * np.float32(self.spacing) + np.float32(self.lo)
-        grads[gids] = eval_in_chunks(grad_fn, pts, self.max_batch, device=self.device)
+        grads[gids] = eval_in_chunks(grad_fn, pts, self.max_batch, device=self.device,
+                                     mesh=self.mesh)
         return grads.reshape(N, N, N, 3)
 
 
 @torch.no_grad()
 def fill_grid_dense(udf_fn: UdfFn, resolution: int, coords_range=(-1.0, 1.0),
-                    max_batch: int = 2**19, device=None) -> np.ndarray:
-    """Naive dense fill — the oracle for GridFiller."""
+                    max_batch: int = 2**19, device=None, mesh=None) -> np.ndarray:
+    """Naive dense fill — the oracle for GridFiller (`mesh` as in `_chunked`)."""
     dev = resolve_device(device)
     xs = np.linspace(coords_range[0], coords_range[1], resolution, dtype=np.float32)
     g = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), axis=-1).reshape(-1, 3)
-    vals = _chunked(udf_fn, torch.from_numpy(g).to(dev), max_batch)
+    vals = _chunked(udf_fn, torch.from_numpy(g).to(dev), max_batch, mesh)
     return vals.cpu().numpy().reshape(resolution, resolution, resolution)

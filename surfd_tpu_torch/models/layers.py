@@ -42,6 +42,26 @@ class GroupNorm32(nn.GroupNorm):
         return super().forward(x.float()).to(x.dtype)
 
 
+@torch.no_grad()
+def lecun_normal_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded LeCun-normal weights in every convolution and linear layer
+    (N(0, 1 / fan_in), zero-init layers included, so that a random model's
+    output is not identically zero), zero biases, unit norms, N(0, 1)
+    embeddings; in `module.modules()` order."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv1d, nn.Conv3d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
+    return module
+
+
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, training: bool) -> torch.Tensor:
     """flax `nn.BatchNorm` over every axis but the last, with `bn`'s eps,
     affine parameters (when it has them) and running buffers.

@@ -1,6 +1,11 @@
 """1-D UNet denoiser (guided-diffusion lineage), PyTorch counterpart of
-surfd_tpu/models/unet1d.py at the Surf-D configuration: scale-shift norm
-off, resampling by convolution, attention at downsample rates {1, 2, 4}.
+surfd_tpu/models/unet1d.py. The Surf-D configuration is the default:
+scale-shift norm off, resampling by convolution, self-attention (K2) at
+downsample rates {1, 2, 4}, a context added to the time embedding. The JAX
+package's other settings are here too: `use_scale_shift_norm`,
+`conv_resample=False` (average pooling and a bare nearest upsample) and
+`use_spatial_transformer` (cross-attention over the context in
+`SpatialTransformer1D` blocks at the attention sites, in place of K2).
 
 Internally channel-first `(B, C, L)`, PyTorch's and the upstream Conv1d
 layout. Module names follow upstream (`time_embed`, `input_blocks`,
@@ -10,7 +15,6 @@ upstream `Unet.*` state dict loads with strict=True.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
@@ -18,7 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention_kernel import qkv_attention
-from .layers import GroupNorm32, timestep_embedding
+from .attention import SpatialTransformer1D
+from .layers import GroupNorm32, lecun_normal_, timestep_embedding
 
 
 class SeededDropout(nn.Module):
@@ -41,15 +46,20 @@ class SeededDropout(nn.Module):
 
 
 class ResBlock1D(nn.Module):
-    """Residual block with additive timestep-embedding injection; `dropout`
-    sits between the second SiLU and the last convolution."""
+    """Residual block with timestep-embedding injection; `dropout` sits
+    between the second SiLU and the last convolution. The embedding is
+    added before the second norm, or with `use_scale_shift_norm` it scales
+    and shifts that norm's output (h·(1 + scale) + shift)."""
 
-    def __init__(self, channels: int, emb_channels: int, out_channels: int, dropout: float = 0.0):
+    def __init__(self, channels: int, emb_channels: int, out_channels: int, dropout: float = 0.0,
+                 use_scale_shift_norm: bool = False):
         super().__init__()
+        self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.Sequential(
             GroupNorm32(channels), nn.SiLU(), nn.Conv1d(channels, out_channels, 3, padding=1)
         )
-        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out_channels))
+        self.emb_layers = nn.Sequential(
+            nn.SiLU(), nn.Linear(emb_channels, (2 if use_scale_shift_norm else 1) * out_channels))
         self.out_layers = nn.Sequential(
             GroupNorm32(out_channels), nn.SiLU(), SeededDropout(dropout),
             nn.Conv1d(out_channels, out_channels, 3, padding=1),
@@ -61,8 +71,13 @@ class ResBlock1D(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         h = self.in_layers(x)
-        h = h + self.emb_layers(emb)[:, :, None]
-        h = self.out_layers(h)
+        e = self.emb_layers(emb)[:, :, None]
+        if self.use_scale_shift_norm:
+            scale, shift = e.chunk(2, dim=1)
+            h = self.out_layers[0](h) * (1 + scale) + shift
+            h = self.out_layers[1:](h)
+        else:
+            h = self.out_layers(h + e)
         return self.skip_connection(x) + h
 
 
@@ -84,34 +99,55 @@ class AttentionBlock1D(nn.Module):
 
 
 class Downsample1D(nn.Module):
-    def __init__(self, channels: int):
+    """Stride-2 convolution (padding 1 each side, as torch's), or average
+    pooling over pairs without `use_conv`."""
+
+    def __init__(self, channels: int, use_conv: bool = True):
         super().__init__()
-        self.op = nn.Conv1d(channels, channels, 3, stride=2, padding=1)
+        self.op = (nn.Conv1d(channels, channels, 3, stride=2, padding=1) if use_conv
+                   else nn.AvgPool1d(2, 2))
 
     def forward(self, x):
         return self.op(x)
 
 
 class Upsample1D(nn.Module):
-    def __init__(self, channels: int):
+    """Nearest upsampling by 2, then a convolution with `use_conv`."""
+
+    def __init__(self, channels: int, use_conv: bool = True):
         super().__init__()
-        self.conv = nn.Conv1d(channels, channels, 3, padding=1)
+        if use_conv:
+            self.conv = nn.Conv1d(channels, channels, 3, padding=1)
 
     def forward(self, x):
-        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return self.conv(x) if hasattr(self, "conv") else x
 
 
 class TimestepSequential(nn.Sequential):
-    """Sequential that hands the embedding to the residual blocks."""
+    """Sequential that hands the embedding to the residual blocks and the
+    context to the spatial transformers (which take tokens, (B, L, C))."""
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, context=None):
         for layer in self:
-            x = layer(x, emb) if isinstance(layer, ResBlock1D) else layer(x)
+            if isinstance(layer, ResBlock1D):
+                x = layer(x, emb)
+            elif isinstance(layer, SpatialTransformer1D):
+                x = layer(x.transpose(1, 2), context).transpose(1, 2)
+            else:
+                x = layer(x)
         return x
 
 
 class UNet1D(nn.Module):
-    """The full 1-D UNet; `forward` takes and returns `(B, C, L)`."""
+    """The full 1-D UNet; `forward` takes and returns `(B, C, L)`.
+
+    The context (B, context_dim) is added to the time embedding through
+    `sketch_emb`; with `use_spatial_transformer` it is instead the
+    cross-attention context, (B, S, context_dim) or (B, context_dim) lifted
+    to S = 1, of `transformer_depth`-deep SpatialTransformer1D blocks at the
+    attention sites (there, `context_dim` is required).
+    """
 
     def __init__(
         self,
@@ -125,17 +161,32 @@ class UNet1D(nn.Module):
         num_heads: int = 8,
         context_dim: Optional[int] = None,
         dropout: float = 0.0,
+        use_scale_shift_norm: bool = False,
+        conv_resample: bool = True,
+        use_spatial_transformer: bool = False,
+        transformer_depth: int = 1,
     ):
         super().__init__()
         mc = model_channels
         ted = 4 * mc
         self.model_channels = mc
         self.num_classes = num_classes
+        self.use_spatial_transformer = use_spatial_transformer
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
         if num_classes is not None:
             self.label_emb = nn.Embedding(num_classes, ted)
-        if context_dim is not None:
+        if use_spatial_transformer and context_dim is None:
+            raise ValueError("use_spatial_transformer needs context_dim")
+        if context_dim is not None and not use_spatial_transformer:
             self.sketch_emb = nn.Linear(context_dim, ted)
+
+        def res(cin, cout):
+            return ResBlock1D(cin, ted, cout, dropout, use_scale_shift_norm)
+
+        def attn(c):
+            if use_spatial_transformer:
+                return SpatialTransformer1D(c, num_heads, transformer_depth, context_dim)
+            return AttentionBlock1D(c, num_heads)
 
         ch = mc
         chans = [mc]
@@ -145,29 +196,26 @@ class UNet1D(nn.Module):
         )
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
-                layers = [ResBlock1D(ch, ted, mult * mc, dropout)]
+                layers = [res(ch, mult * mc)]
                 ch = mult * mc
                 if ds in attention_resolutions:
-                    layers.append(AttentionBlock1D(ch, num_heads))
+                    layers.append(attn(ch))
                 self.input_blocks.append(TimestepSequential(*layers))
                 chans.append(ch)
             if level != len(channel_mult) - 1:
-                self.input_blocks.append(TimestepSequential(Downsample1D(ch)))
+                self.input_blocks.append(TimestepSequential(Downsample1D(ch, conv_resample)))
                 chans.append(ch)
                 ds *= 2
-        self.middle_block = TimestepSequential(
-            ResBlock1D(ch, ted, ch, dropout), AttentionBlock1D(ch, num_heads),
-            ResBlock1D(ch, ted, ch, dropout),
-        )
+        self.middle_block = TimestepSequential(res(ch, ch), attn(ch), res(ch, ch))
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(channel_mult))):
             for i in range(num_res_blocks + 1):
-                layers = [ResBlock1D(ch + chans.pop(), ted, mult * mc, dropout)]
+                layers = [res(ch + chans.pop(), mult * mc)]
                 ch = mult * mc
                 if ds in attention_resolutions:
-                    layers.append(AttentionBlock1D(ch, num_heads))
+                    layers.append(attn(ch))
                 if level and i == num_res_blocks:
-                    layers.append(Upsample1D(ch))
+                    layers.append(Upsample1D(ch, conv_resample))
                     ds //= 2
                 self.output_blocks.append(TimestepSequential(*layers))
         self.out = nn.Sequential(
@@ -181,16 +229,20 @@ class UNet1D(nn.Module):
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels))
         if y is not None:
             emb = emb + self.label_emb(y)
+        ctx = None
         if context is not None:
-            emb = emb + self.sketch_emb(context)
+            if self.use_spatial_transformer:
+                ctx = context if context.dim() == 3 else context[:, None, :]
+            else:
+                emb = emb + self.sketch_emb(context)
         h = x
         hs = []
         for block in self.input_blocks:
-            h = block(h, emb)
+            h = block(h, emb, ctx)
             hs.append(h)
-        h = self.middle_block(h, emb)
+        h = self.middle_block(h, emb, ctx)
         for block in self.output_blocks:
-            h = block(torch.cat([h, hs.pop()], dim=1), emb)
+            h = block(torch.cat([h, hs.pop()], dim=1), emb, ctx)
         return self.out(h)
 
     @torch.no_grad()
@@ -198,19 +250,7 @@ class UNet1D(nn.Module):
         """Seeded LeCun-normal weights (every conv and linear, zero-init ones
         included, so the random model's output is not identically zero),
         zero biases, unit norms, N(0, 1) label embeddings."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv1d, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(
-                    torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in)
-                )
-                m.bias.zero_()
-            elif isinstance(m, nn.GroupNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, nn.Embedding):
-                m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
-        return self
+        return lecun_normal_(self, generator)
 
     @torch.no_grad()
     def training_init_(self, generator: torch.Generator, null_class: Optional[int] = None
@@ -218,11 +258,13 @@ class UNet1D(nn.Module):
         """The JAX package's initialisation for training from scratch:
         random_init_'s LeCun-normal weights (Flax draws them truncated), then
         the reference's zero-initialised convolutions (`zero_module`: each
-        res block's last conv, each attention block's proj_out, the output
+        res block's last conv, each attention block's and spatial transformer's
+        proj_out, the output
         conv) and the CFG null class's label row at zero."""
         self.random_init_(generator)
         zeroed = [b.out_layers[-1] for b in self.modules() if isinstance(b, ResBlock1D)]
-        zeroed += [b.proj_out for b in self.modules() if isinstance(b, AttentionBlock1D)]
+        zeroed += [b.proj_out for b in self.modules()
+                   if isinstance(b, (AttentionBlock1D, SpatialTransformer1D))]
         for m in zeroed + [self.out[-1]]:
             m.weight.zero_()
             m.bias.zero_()

@@ -12,10 +12,19 @@ Torch keeps some state per thread. Each worker takes the caller's current
 CUDA device and stream; grad mode is per thread too, and every extraction
 turns it off itself. Meshes come out in input order and do not depend on
 the depth.
+
+Under a device mesh (`cfg.mesh`) every extraction issues collectives, and
+a process group's collectives must reach every rank in the same order: two
+threads sharing one group could interleave differently on two ranks and
+deadlock or mix up results. So the k-th extraction of a pipeline runs on
+slot k mod depth, each slot with its own fork of the mesh (new process
+groups, made once per mesh and slot, on every rank in the same order), and
+extraction k + depth starts only after extraction k has finished.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, Optional
@@ -45,6 +54,22 @@ def _on_callers_stream(fn: Callable) -> Callable:
     return run
 
 
+_FORKS: dict = {}  # id(mesh) → (mesh, [its forks, one a pipeline slot])
+
+
+def _slot_configs(cfg: MeshExtractionConfig, depth: int) -> list:
+    """One config a pipeline slot: `cfg` itself without a mesh or at depth
+    1, else `cfg` on the slot's own fork of the mesh."""
+    if cfg.mesh is None or depth == 1:
+        return [cfg] * depth
+    from ..parallel.mesh import fork_mesh
+
+    _, forks = _FORKS.setdefault(id(cfg.mesh), (cfg.mesh, []))
+    while len(forks) < depth:
+        forks.append(fork_mesh(cfg.mesh))
+    return [dataclasses.replace(cfg, mesh=m) for m in forks[:depth]]
+
+
 def generate_meshes_pipelined(
     udf_fns: Iterable,
     cfg: MeshExtractionConfig = MeshExtractionConfig(),
@@ -59,14 +84,18 @@ def generate_meshes_pipelined(
     `return_stats`.
     """
     extract = get_watertight_mesh_from_udf if watertight else get_mesh_from_udf
-    work = _on_callers_stream(lambda fn: extract(fn, cfg=cfg, return_stats=return_stats))
     depth = max(1, depth)
+    cfgs = _slot_configs(cfg, depth)
+    work = _on_callers_stream(lambda fn, c: extract(fn, cfg=c, return_stats=return_stats))
     with ThreadPoolExecutor(max_workers=depth) as pool:
-        it = iter(udf_fns)
-        pending = [pool.submit(work, fn) for fn in itertools.islice(it, depth)]
+        it = enumerate(udf_fns)
+        pending = [pool.submit(work, fn, cfgs[k % depth]) for k, fn in itertools.islice(it, depth)]
         while pending:
             fut = pending.pop(0)
-            pending.extend(pool.submit(work, fn) for fn in itertools.islice(it, 1))
+            if cfg.mesh is not None:  # the slot's next extraction waits for this one
+                fut.result()
+            pending.extend(pool.submit(work, fn, cfgs[k % depth])
+                           for k, fn in itertools.islice(it, 1))
             yield fut.result()
 
 

@@ -45,7 +45,7 @@ from ..geometry import (
     smooth_borders,
     stabilize,
 )
-from ..geometry.grid import GRAD_CHUNK
+from ..geometry.grid import GRAD_CHUNK, _chunked
 from ..geometry.mesh_ops import _unique_i64
 from ..models.decoder import CbnDecoder, coords_encode, udf_from_logits
 from ..ops.decoder_kernel import fold_decoder, folded_udf
@@ -92,11 +92,11 @@ class UdfEvaluator:
         self.folded = fold_decoder(decoder, latent, self.max_dist)
         self._band = None
 
-    def _chunks(self, fn, x: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
-        chunk = chunk or self.chunk
-        if len(x) == 0:
-            return fn(x)
-        return torch.cat([fn(x[i:i + chunk]) for i in range(0, len(x), chunk)])
+    def _chunks(self, fn, x: torch.Tensor, chunk: int | None = None, mesh=None) -> torch.Tensor:
+        """fn over slices of `chunk` (default `self.chunk`) points; with a
+        DeviceMesh the slices are split over its 'data' ranks and gathered
+        (`geometry.grid._chunked`)."""
+        return _chunked(fn, x, chunk or self.chunk, mesh)
 
     def __call__(self, pts: torch.Tensor) -> torch.Tensor:
         """Float32 UDF (K1 f32)."""
@@ -115,27 +115,37 @@ class UdfEvaluator:
             qlo, device=self.device)
 
     def below_q16(self, qpts: torch.Tensor, thr: float, qlo: float, qstep: float,
-                  bias: BiasTable | None = None) -> torch.Tensor:
+                  bias: BiasTable | None = None, mesh=None) -> torch.Tensor:
         """udf(p) − bias(p) ≤ thr at u16-quantised points p = q·qstep + qlo."""
-        pts = self._dequant(qpts, qlo, qstep)
-        u = self(pts)
-        if bias is not None:
-            u = u - bias.at(pts)
-        return u <= torch.tensor(thr, dtype=torch.float32)
+
+        def one(q):
+            pts = self._dequant(q, qlo, qstep)
+            u = folded_udf(self.folded, pts, "f32")
+            if bias is not None:
+                u = u - bias.at(pts)
+            return u <= torch.tensor(thr, dtype=torch.float32)
+
+        return self._chunks(one, qpts, mesh=mesh)
 
     def below2t_q16(self, qpts: torch.Tensor, thr: float, qlo: float, qstep: float,
-                    band: float, bias: BiasTable | None = None):
+                    band: float, bias: BiasTable | None = None, mesh=None):
         """Tier 1 of the two-tier filter: (below, sure) on the tier-1 UDF;
         `sure` is False within `band` of the threshold, where the caller
         re-checks with `below_q16`."""
-        pts = self._dequant(qpts, qlo, qstep)
-        u = self.udf_bf16(pts)
-        if bias is not None:
-            u = u - bias.at(pts)
-        t = torch.tensor(thr, dtype=torch.float32)
-        return u <= t, (u - t).abs() > torch.tensor(band, dtype=torch.float32)
 
-    def two_tier_band(self) -> float:
+        def one(q):
+            pts = self._dequant(q, qlo, qstep)
+            u = folded_udf(self.folded, pts, "bf16")
+            if bias is not None:
+                u = u - bias.at(pts)
+            t = torch.tensor(thr, dtype=torch.float32)
+            return torch.stack([u <= t, (u - t).abs() > torch.tensor(band, dtype=torch.float32)],
+                               dim=1)
+
+        out = self._chunks(one, qpts, mesh=mesh)
+        return out[:, 0], out[:, 1]
+
+    def two_tier_band(self, mesh=None) -> float:
         """Calibrated tier-1 error band for this decoder and latent: 2× the
         max |tier 1 − f32| over a fixed 128k-point probe, at least
         1e-4·max_dist.
@@ -149,7 +159,9 @@ class UdfEvaluator:
         if self._band is None:
             probe = np.random.default_rng(0).uniform(-1.0, 1.0, (131072, 3)).astype(np.float32)
             p = torch.from_numpy(probe).to(self.device)
-            err = float((self.udf_bf16(p) - self(p)).abs().max())
+            err = float(self._chunks(lambda x: (folded_udf(self.folded, x, "bf16")
+                                                - folded_udf(self.folded, x, "f32")).abs(),
+                                     p, mesh=mesh).max())
             self._band = max(2.0 * err, 1e-4 * self.max_dist)
         return self._band
 
@@ -164,16 +176,20 @@ class UdfEvaluator:
         (`geometry.make_grad_fn` over this evaluator)."""
         return make_grad_fn(self, min(self.chunk, GRAD_CHUNK))(pts)
 
-    def grad_i8_gid(self, gids, R: int, lo: float, spacing: float) -> np.ndarray:
+    def grad_i8_gid(self, gids, R: int, lo: float, spacing: float, mesh=None) -> np.ndarray:
         """int8 unit gradients at flat grid ids (host int64 in, host int8 out)."""
-        g = torch.as_tensor(np.ascontiguousarray(gids, np.int64), device=self.device)
         RR = R * R
-        xyz = torch.stack([g // RR, (g % RR) // R, g % R], dim=-1).to(torch.float32)
-        pts = xyz * torch.tensor(np.float32(spacing), device=self.device) + torch.tensor(
-            np.float32(lo), device=self.device)
-        d = self.grad(pts)
-        n = d.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-        return torch.round(d / n * 127.0).to(torch.int8).cpu().numpy()
+        sp = torch.tensor(np.float32(spacing), device=self.device)
+        lo_t = torch.tensor(np.float32(lo), device=self.device)
+
+        def one(g):
+            xyz = torch.stack([g // RR, (g % RR) // R, g % R], dim=-1).to(torch.float32)
+            d = self.grad(xyz * sp + lo_t)
+            n = d.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+            return torch.round(d / n * 127.0).to(torch.int8)
+
+        g = torch.as_tensor(np.ascontiguousarray(gids, np.int64), device=self.device)
+        return self._chunks(one, g, mesh=mesh).cpu().numpy()
 
 
 def make_udf_fn(decoder: CbnDecoder, state, latent, max_dist: float = 0.1, device=None,
@@ -194,7 +210,7 @@ def make_udf_fn(decoder: CbnDecoder, state, latent, max_dist: float = 0.1, devic
 
 @dataclass
 class MeshExtractionConfig:
-    """Extraction settings: the JAX package's, without its device mesh."""
+    """Extraction settings: the JAX package's `MeshExtractionConfig`."""
 
     resolution: int = 512
     coords_range: tuple = (-1.0, 1.0)
@@ -222,6 +238,11 @@ class MeshExtractionConfig:
     two_tier_band: float | None = None
     final_laplacian_iters: int = 0
     min_component_faces: int = 0
+    # optional DeviceMesh (parallel.make_mesh) with a 'data' axis: the
+    # grid-query stream (fills, gradients, face filter, band calibration) is
+    # split over its ranks and gathered back, so that every rank holds the
+    # unsharded grid and runs the same host passes; every rank must call
+    mesh: object = None
 
 
 def _device_of(udf_fn, grad_fn=None) -> torch.device:
@@ -246,22 +267,23 @@ def make_field_bias_at(bias_field: np.ndarray, lo: float, cell: float):
 
 
 def _below_f32(udf_fn, pts: np.ndarray, threshold: float, chunk: int, bias_at=None,
-               device=None) -> np.ndarray:
+               device=None, mesh=None) -> np.ndarray:
     """udf(p) − bias_at(p) ≤ threshold at exact f32 points (host bool)."""
-    u = eval_in_chunks(udf_fn, pts, chunk, device=device)
+    u = eval_in_chunks(udf_fn, pts, chunk, device=device, mesh=mesh)
     if bias_at is not None:
         u = u - bias_at(pts)
     return u <= threshold
 
 
 def filter_faces_by_udf(mesh: Mesh, udf_fn, threshold: float, chunk: int = 2**16,
-                        bias_at=None) -> Mesh:
+                        bias_at=None, device_mesh=None) -> Mesh:
     """Drop faces with a vertex or an edge midpoint whose UDF exceeds
     `threshold` (the reference's false-face filter, th_dist = 1/N), in numpy
     around one evaluation of the deduplicated points. bias_at: optional host
     (P, 3) → (P,) local surface-bias floor; the test is then
     udf(p) − bias_at(p) ≤ threshold. The points go to udf_fn's device, else
-    to CUDA."""
+    to CUDA. device_mesh: a DeviceMesh over whose 'data' ranks the points
+    are split (`MeshExtractionConfig.mesh`)."""
     if len(mesh.faces) == 0:
         return mesh
     v, f = mesh.vertices, mesh.faces
@@ -272,7 +294,7 @@ def filter_faces_by_udf(mesh: Mesh, udf_fn, threshold: float, chunk: int = 2**16
     ea = (uniq // NV).astype(np.int64)
     eb = (uniq % NV).astype(np.int64)
     pts = np.concatenate([v, 0.5 * (v[ea] + v[eb])], axis=0).astype(np.float32)
-    ok = _below_f32(udf_fn, pts, threshold, chunk, bias_at)
+    ok = _below_f32(udf_fn, pts, threshold, chunk, bias_at, mesh=device_mesh)
     mid_ok = ok[len(v):][inv].reshape(3, -1)
     keep = ok[: len(v)][f].all(axis=1) & mid_ok.all(axis=0)
     return Mesh(v, f[keep])
@@ -293,7 +315,9 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
     callable, or a host one taking grid ids and marked `by_gid = True`), else
     from `make_grad_fn`, and its filter on exact f32 points. The device is
     udf_fn's `device`, else grad_fn's, else CUDA. Raises if the native
-    library cannot load.
+    library cannot load. With `cfg.mesh` every rank of its 'data' axis makes
+    the call on the same udf_fn; each evaluates its share of every query
+    and all get the unsharded mesh.
     """
     if isinstance(grad_fn, MeshExtractionConfig):
         raise TypeError("the second argument is grad_fn; pass the config as cfg=")
@@ -301,7 +325,8 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
     times = {}
     t0 = time.perf_counter()
     gf = GridFiller(cfg.resolution, cfg.coords_range, max_batch=cfg.max_batch,
-                    max_dist=cfg.max_dist, surface_bias=cfg.surface_bias, device=dev)
+                    max_dist=cfg.max_dist, surface_bias=cfg.surface_bias, device=dev,
+                    mesh=cfg.mesh)
     grid, stats = gf.fill(udf_fn, return_stats=True)
     times["grid_fill"] = time.perf_counter() - t0
     lo_, hi_ = cfg.coords_range
@@ -319,13 +344,14 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
     t0 = time.perf_counter()
     gid_grad = getattr(udf_fn, "grad_i8_gid", None)
     if grad_fn is None and gid_grad is not None:
-        grad_at = lambda gids: gid_grad(gids, R, lo_, voxel)
+        grad_at = lambda gids: gid_grad(gids, R, lo_, voxel, mesh=cfg.mesh)
         grad_at.by_gid = True
     elif getattr(grad_fn, "by_gid", False):
         grad_at = grad_fn
     else:
         point_grad = grad_fn if grad_fn is not None else make_grad_fn(udf_fn)
-        grad_at = lambda pts: eval_in_chunks(point_grad, pts, cfg.max_batch, device=dev)
+        grad_at = lambda pts: eval_in_chunks(point_grad, pts, cfg.max_batch, device=dev,
+                                             mesh=cfg.mesh)
     mesh = marching_tetrahedra_udf(grid, grad_at, cfg.coords_range, times=times,
                                    active_blocks=active_blocks)
     times["marching"] = time.perf_counter() - t0
@@ -357,7 +383,7 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
             two_tier, band = cfg.two_tier_filter, None
             if two_tier:
                 band = (cfg.two_tier_band if cfg.two_tier_band is not None
-                        else udf_fn.two_tier_band())
+                        else udf_fn.two_tier_band(mesh=cfg.mesh))
                 # filter points sit on the surface, where |udf − thr| is
                 # small: a wide band re-checks most of them and one f32 pass
                 # is cheaper
@@ -371,14 +397,16 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
             q = torch.from_numpy(np.concatenate([qverts, qmids]).astype(np.int32)).to(dev)
             if two_tier:
                 t1 = time.perf_counter()
-                below, sure = udf_fn.below2t_q16(q, threshold, lo_, qstep, band, bias_tbl)
+                below, sure = udf_fn.below2t_q16(q, threshold, lo_, qstep, band, bias_tbl,
+                                                 mesh=cfg.mesh)
                 uns = torch.nonzero(~sure)[:, 0]
                 stats["ff_unsure"] = int(len(uns))
                 if len(uns):
-                    below[uns] = udf_fn.below_q16(q[uns], threshold, lo_, qstep, bias_tbl)
+                    below[uns] = udf_fn.below_q16(q[uns], threshold, lo_, qstep, bias_tbl,
+                                                  mesh=cfg.mesh)
                 times["ff_t1_t2"] = round(time.perf_counter() - t1, 3)
             else:
-                below = udf_fn.below_q16(q, threshold, lo_, qstep, bias_tbl)
+                below = udf_fn.below_q16(q, threshold, lo_, qstep, bias_tbl, mesh=cfg.mesh)
             ok = below.to(torch.uint8).cpu().numpy()
             times["face_filter"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -391,7 +419,7 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
             stats.update(ff_band=None, ff_threshold=threshold, ff_two_tier=False)
             pts, einv = native.face_filter_prep(mesh.vertices, mesh.faces)
             times["ff_prep"] = round(time.perf_counter() - t0, 3)
-            ok = _below_f32(udf_fn, pts, threshold, cfg.max_batch, bias_at, dev)
+            ok = _below_f32(udf_fn, pts, threshold, cfg.max_batch, bias_at, dev, cfg.mesh)
             times["face_filter"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             v, f = native.finalize_mesh(mesh.vertices, mesh.faces, ok, einv, **cleanup)
@@ -434,7 +462,8 @@ def get_watertight_mesh_from_udf(udf_fn, cfg: MeshExtractionConfig = MeshExtract
     times = {}
     t0 = time.perf_counter()
     gf = GridFiller(cfg.resolution, cfg.coords_range, max_batch=cfg.max_batch,
-                    max_dist=cfg.max_dist, surface_bias=cfg.surface_bias, device=dev)
+                    max_dist=cfg.max_dist, surface_bias=cfg.surface_bias, device=dev,
+                    mesh=cfg.mesh)
     grid = gf.fill(udf_fn)
     times["grid_fill"] = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -9,17 +9,27 @@ annealed lr, EMA, unless the loss or the gradient norm is not finite.
 so that a test can replay another implementation's draws; otherwise both
 come from the caller's `torch.Generator`, as do the dropout masks.
 
-The loop is a Python loop over the step on one device. `run` and
-`run_chunked` differ only in their draws: `run_chunked` keeps the JAX
-package's chunked draws (epoch permutations of a bank of latents, K steps'
-rows and timesteps at once, a chunk ending at each log and save step) and
-feeds them to the same loop one step at a time.
+The loop is a Python loop over the step. `run` and `run_chunked` differ
+only in their draws: `run_chunked` keeps the JAX package's chunked draws
+(epoch permutations of a bank of latents, K steps' rows and timesteps at
+once, a chunk ending at each log and save step) and feeds them to the same
+loop one step at a time.
+
+Data parallel (`mesh`, a DeviceMesh from `parallel.make_mesh`): one process
+a card, the model wrapped in DDP over the mesh's 'data' group. Every rank
+draws the global batch, its t and weights, the training noise and the
+conditioning-dropout mask from identically seeded generators, then takes
+its equal shard, as the JAX package's `shard_batch` splits one global
+batch; so R ranks × B / R take the steps one process takes at B (up to the
+order of the gradient sums). The res-block dropout masks are per rank.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Iterator, Optional
+
+import sys
 
 import numpy as np
 import torch
@@ -28,6 +38,8 @@ from ..diffusion import LossType, MeanType, Schedule, VarType, training_losses
 from ..diffusion.resample import create_named_schedule_sampler
 from ..models.mdm import MDM
 from ..models.unet1d import SeededDropout
+from ..parallel.mesh import all_gather_rows, data_axis
+from ..parallel.multihost import is_main_process
 from .common import (
     GracefulShutdown,
     StallWatchdog,
@@ -75,10 +87,18 @@ def make_train_step(
     encoder: Optional[Callable] = None,
     l1_weight: float = 1000.0,
     cond_mask_prob: float = 0.0,
+    mesh=None,
 ):
     """The train step `train_step(state, batch, t, weights, *, noise=None,
     cond_drop=None, generator=None) -> metrics`, updating `state` in place
     (the EMA at `state.ema_rate`).
+
+    With `mesh`, the module runs under DDP over the 'data' group; the step
+    takes the global batch, t, weights (and injected noise and mask), draws
+    what is not injected for the global batch, and computes this rank's
+    shard. Its metrics are the global batch's: per-example terms gathered,
+    the loss their weighted mean, the gradient norm of the averaged
+    gradients; so every rank decides the non-finite skip alike.
 
     batch: 'latents' (B, L), or 'pcd' (B, N, 3) through the frozen `encoder`;
     optional 'context' (B, 512) or 'action' (B,). t: (B,) steps from the
@@ -90,48 +110,70 @@ def make_train_step(
     """
     device = next(mdm.parameters()).device
     dropouts = [m for m in mdm.modules() if isinstance(m, SeededDropout)]
+    model, rank, n = mdm, 0, 1
+    if mesh is not None:
+        from torch.nn.parallel import DistributedDataParallel
+
+        group, rank, n = data_axis(mesh)
+        # broadcasts rank 0's parameters at construction
+        model = DistributedDataParallel(
+            mdm, device_ids=[device.index] if device.type == "cuda" else None,
+            process_group=group, broadcast_buffers=False)
 
     def loss_fn(batch, t, weights, *, noise=None, cond_drop=None, generator=None):
+        """This rank's loss on its shard of the global inputs, and its terms."""
         batch = batch_to_device(batch, device)
         t = on_device(t, device, torch.int64)
         weights = on_device(weights, device, torch.float32)
+        B = len(t)
+        if B % n:
+            raise ValueError(f"batch of {B} does not split over {n} data ranks")
+        sl = slice(rank * B // n, (rank + 1) * B // n)
         if "latents" in batch:
-            latents = batch["latents"]
+            latents = batch["latents"][sl]
         else:
             with torch.no_grad():
-                latents = encoder(batch["pcd"])
-        x0 = latents[..., None]  # (B, L, 1)
+                latents = encoder(batch["pcd"][sl])
+        x0 = latents[..., None]  # (B / n, L, 1)
         context, action = batch.get("context"), batch.get("action")
+        context = None if context is None else context[sl]
+        action = None if action is None else action[sl]
         if cond_mask_prob > 0.0:
             if cond_drop is None:
-                cond_drop = torch.rand(x0.shape[0], generator=generator, device=device) < cond_mask_prob
-            cond_drop = on_device(cond_drop, device, torch.bool)
+                cond_drop = torch.rand(B, generator=generator, device=device) < cond_mask_prob
+            cond_drop = on_device(cond_drop, device, torch.bool)[sl]
             if context is not None:
                 context = torch.where(cond_drop[:, None], 0.0, context)
             if action is not None:
                 action = torch.where(cond_drop, mdm.null_action, action)
-        if noise is not None:
-            noise = on_device(noise, device, torch.float32)
+        if noise is None:  # the draw training_losses makes, for the global batch
+            noise = torch.randn((B,) + tuple(x0.shape[1:]), generator=generator, device=device)
+        noise = on_device(noise, device, torch.float32)[sl]
         mdm.train(mdm.dropout > 0.0)
         for m in dropouts:
             m.generator = generator
         terms = training_losses(
-            sched, lambda x, tt: mdm(x, tt, context=context, action=action), x0, t,
+            sched, lambda x, tt: model(x, tt, context=context, action=action), x0, t[sl],
             noise=noise, generator=generator, mean_type=MeanType.START_X,
             var_type=VarType.FIXED_SMALL, loss_type=LossType.MSE, l1_weight=l1_weight,
         )
-        return (terms["loss"] * weights).mean(), terms
+        return (terms["loss"] * weights[sl]).mean(), terms
 
     def train_step(state: TrainState, batch, t, weights, *, noise=None, cond_drop=None,
                    generator=None) -> dict:
         loss, terms = loss_fn(batch, t, weights, noise=noise, cond_drop=cond_drop,
                               generator=generator)
-        loss.backward()
+        loss.backward()  # under DDP: the gradients averaged over 'data'
+        per_ex, l1 = terms["loss"].detach(), terms["latent_l1"].detach()
+        if mesh is not None:
+            both = all_gather_rows(mesh, torch.stack([per_ex, l1], dim=1))
+            per_ex, l1 = both[:, 0], both[:, 1]
+            loss = (per_ex * on_device(weights, device, torch.float32)).mean()
         ok, gnorm = apply_update_if_finite(state, loss)
         return {
             "loss": loss.detach(),
-            "latent_l1": terms["latent_l1"].detach().mean(),
-            "per_example_loss": terms["loss"].detach(),
+            "latent_l1": l1.mean(),
+            "per_example_loss": per_ex,
             "grad_norm": gnorm,
             "param_norm": global_norm(state.model.parameters()),
             "nonfinite_skipped": 0.0 if ok else 1.0,
@@ -154,11 +196,17 @@ class DiffusionTrainer:
     timesteps from the schedule sampler on a numpy `default_rng(0)`, the
     sampler's loss feedback (finite losses only), the log and save cadence,
     preemption (SIGTERM/SIGINT: checkpoint and return) and the watchdog.
-    `generator`: the step's torch.Generator on the model's device."""
+    `generator`: the step's torch.Generator on the model's device.
+
+    `mesh`: train data parallel over its 'data' axis (`make_train_step`);
+    every rank runs the loop on the same seeded draws and the same
+    `data_iter` contents. The schedule sampler sees the global batch's
+    losses on every rank. Only the main process logs and writes
+    checkpoints; a resume restores the same state on every rank."""
 
     def __init__(self, cfg: DiffusionTrainConfig, mdm: MDM, sched: Schedule, state: TrainState,
                  data_iter, encoder=None, schedule_sampler=None, checkpointer=None, logger=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         self.cfg = cfg
         self.mdm = mdm
         self.sched = sched
@@ -166,12 +214,15 @@ class DiffusionTrainer:
         self.data_iter = data_iter
         self.schedule_sampler = schedule_sampler or create_named_schedule_sampler(
             cfg.schedule_sampler, sched.num_timesteps)
-        self.checkpointer = checkpointer
-        self.logger = logger
+        main = is_main_process()
+        self.checkpointer = checkpointer if main else None
+        self.logger = logger if main else None
+        self.mesh = mesh
+        self.encoder = encoder
         device = next(mdm.parameters()).device
         self.generator = generator or torch.Generator(device=device).manual_seed(0)
         self._step_fn = make_train_step(mdm, sched, encoder, cfg.l1_weight,
-                                        cond_mask_prob=cfg.cond_mask_prob)
+                                        cond_mask_prob=cfg.cond_mask_prob, mesh=mesh)
         self._np_rng = np.random.default_rng(0)
 
     def run(self, num_steps: Optional[int] = None) -> TrainState:
@@ -192,9 +243,16 @@ class DiffusionTrainer:
         'action' / 'context' rows) with the JAX package's chunked draws: per
         chunk of K ≤ `steps_per_call` steps the host draws K batch-index rows
         (epoch permutations of the bank), then K·B timesteps. A chunk ends
-        at the next log or save step. Uniform sampler only."""
+        at the next log or save step. Uniform sampler only. Under a mesh it
+        runs single-device on every rank, as the JAX package's CLI does."""
         if self.schedule_sampler.needs_losses:
             raise ValueError("chunked training requires the uniform sampler")
+        if self.mesh is not None:
+            print("steps_per_call > 1 runs single-device; ignoring mesh", file=sys.stderr)
+            self.mesh = None
+            self._step_fn = make_train_step(self.mdm, self.sched, self.encoder,
+                                            self.cfg.l1_weight,
+                                            cond_mask_prob=self.cfg.cond_mask_prob)
         num_steps = num_steps or self.cfg.num_steps
         B, n = self.cfg.batch_size, len(bank["latents"])
         if n < B:
@@ -223,13 +281,24 @@ class DiffusionTrainer:
 
         return self._loop(draws(), num_steps)
 
+    def _any_rank(self, flag: bool) -> bool:
+        """`flag` on any 'data' rank: under a mesh a preemption signal that
+        reaches one rank a step late must not leave the others in a step's
+        collectives."""
+        if self.mesh is None:
+            return flag
+        group, _, _ = data_axis(self.mesh)
+        t = torch.tensor([float(flag)], device=next(self.mdm.parameters()).device)
+        torch.distributed.all_reduce(t, torch.distributed.ReduceOp.MAX, group=group)
+        return bool(t.item())
+
     def _loop(self, draws: Iterator, num_steps: int) -> TrainState:
         """Steps on `draws`' (batch, t, weights) until `num_steps`. A logged
         `nonfinite_skipped` counts the steps skipped since the last log."""
         skipped = 0.0
         with GracefulShutdown() as stop, StallWatchdog(self.cfg.stall_exit_s) as wd:
             while self.state.step < num_steps:
-                if stop.requested:
+                if self._any_rank(stop.requested):
                     if self.checkpointer:
                         self.checkpointer.save(self.state.step, self.state, force=True)
                         self.checkpointer.wait()

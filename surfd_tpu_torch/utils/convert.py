@@ -11,7 +11,12 @@ Layout rules (the inverse of the JAX package's torch converters):
   Flax BatchNorm scale/bias          → BatchNorm weight/bias
 
 The decoder comes out under `decoder.*`, the denoiser under `Unet.*`, the
-encoder unprefixed (`conv_1..5`, `bn_1..5`). Unlike
+encoder unprefixed (`conv_1..5`, `bn_1..5`); the UNet at every setting of
+the JAX module (`unet1d_state_from_flax`), the attention blocks
+(`attention_state_from_flax`), the classifier half-UNet
+(`encoder_unet_state_from_flax`) and the grid AE
+(`grid_ae_state_from_flax`, Conv3d kernels (kd, kh, kw, in, out) → (out,
+in, kd, kh, kw)) unprefixed. Unlike
 the upstream export, the category model keeps its CFG null-class row as the
 last row of `label_emb` (upstream checkpoints lack it; `pad_null_class_row`
 restores it as zeros). CLIP comes out in OpenAI's layout (`clip_state_from_flax`,
@@ -155,65 +160,212 @@ def strip_prefix(sd: StateDict, prefix: str) -> StateDict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
-def mdm_state_from_flax(variables, channel_mult=(1, 2, 4, 4), num_res_blocks: int = 2,
-                        attention_resolutions=(4, 2, 1)) -> StateDict:
-    """MDM {'params': {'unet': ...}} → `Unet.*` state dict (null row kept)."""
-    unet = variables["params"]["unet"]
+def _layernorm(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _cross_attention(sd, prefix, p):
+    for n in ("to_q", "to_k", "to_v"):
+        _dense(sd, f"{prefix}.{n}", p[n])
+    _dense(sd, f"{prefix}.to_out.0", p["to_out"])
+
+
+def _feed_forward(sd, prefix, p):
+    if "geglu" in p:
+        _dense(sd, f"{prefix}.net.0.proj", p["geglu"]["proj"])
+    else:
+        _dense(sd, f"{prefix}.net.0.0", p["fc_in"])
+    _dense(sd, f"{prefix}.net.2", p["fc_out"])
+
+
+def _transformer_block(sd, prefix, p):
+    _cross_attention(sd, f"{prefix}.attn1", p["attn1"])
+    _cross_attention(sd, f"{prefix}.attn2", p["attn2"])
+    _feed_forward(sd, f"{prefix}.ff", p["ff"])
+    for n in ("norm1", "norm2", "norm3"):
+        _layernorm(sd, f"{prefix}.{n}", p[n])
+
+
+def _spatial_transformer(sd, prefix, p):
+    _groupnorm(sd, f"{prefix}.norm", p["GroupNorm32_0"])
+    _dense(sd, f"{prefix}.proj_in", p["proj_in"])
+    for i in range(sum(1 for k in p if k.startswith("block_"))):
+        _transformer_block(sd, f"{prefix}.transformer_blocks.{i}", p[f"block_{i}"])
+    _dense(sd, f"{prefix}.proj_out", p["proj_out"])
+
+
+def _unprefixed(fill, params) -> StateDict:
     sd: StateDict = {}
+    fill(sd, "_", params)
+    return {k[2:]: v for k, v in sd.items()}
 
-    def res(prefix, p):
-        _groupnorm(sd, f"{prefix}.in_layers.0", p["GroupNorm32_0"])
-        _convk(sd, f"{prefix}.in_layers.2", p["in_conv"])
-        _dense(sd, f"{prefix}.emb_layers.1", p["emb_proj"])
-        _groupnorm(sd, f"{prefix}.out_layers.0", p["GroupNorm32_1"])
-        _convk(sd, f"{prefix}.out_layers.3", p["out_conv"])
-        if "skip" in p:
-            _convk(sd, f"{prefix}.skip_connection", p["skip"])
 
-    def attn(prefix, p):
-        _groupnorm(sd, f"{prefix}.norm", p["GroupNorm32_0"])
-        _convk(sd, f"{prefix}.qkv", p["qkv"])
-        _convk(sd, f"{prefix}.proj_out", p["proj_out"])
+def attention_state_from_flax(module: str, params) -> StateDict:
+    """The Flax params of one block of models/attention.py → the port's
+    state dict in upstream `modules/attention.py` keys. module: "GEGLU",
+    "FeedForward", "CrossAttention", "BasicTransformerBlock",
+    "SpatialTransformer1D" or "LinearAttention"."""
+    def geglu(sd, prefix, p):
+        _dense(sd, f"{prefix}.proj", p["proj"])
 
-    _dense(sd, "time_embed.0", unet["time_embed_0"])
-    _dense(sd, "time_embed.2", unet["time_embed_2"])
-    _convk(sd, "input_blocks.0.0", unet["in_conv"])
+    def linear(sd, prefix, p):
+        _dense(sd, f"{prefix}.to_qkv", p["to_qkv"])
+        _dense(sd, f"{prefix}.to_out", p["to_out"])
+
+    fills = {"GEGLU": geglu, "FeedForward": _feed_forward, "CrossAttention": _cross_attention,
+             "BasicTransformerBlock": _transformer_block,
+             "SpatialTransformer1D": _spatial_transformer, "LinearAttention": linear}
+    return _unprefixed(fills[module], params)
+
+
+def _res_block(sd, prefix, p):
+    _groupnorm(sd, f"{prefix}.in_layers.0", p["GroupNorm32_0"])
+    _convk(sd, f"{prefix}.in_layers.2", p["in_conv"])
+    _dense(sd, f"{prefix}.emb_layers.1", p["emb_proj"])
+    _groupnorm(sd, f"{prefix}.out_layers.0", p["GroupNorm32_1"])
+    _convk(sd, f"{prefix}.out_layers.3", p["out_conv"])
+    if "skip" in p:
+        _convk(sd, f"{prefix}.skip_connection", p["skip"])
+
+
+def _attn_site(sd, prefix, p):
+    """An attention site: AttentionBlock1D, or a SpatialTransformer1D."""
+    if "proj_in" in p:
+        _spatial_transformer(sd, prefix, p)
+        return
+    _groupnorm(sd, f"{prefix}.norm", p["GroupNorm32_0"])
+    _convk(sd, f"{prefix}.qkv", p["qkv"])
+    _convk(sd, f"{prefix}.proj_out", p["proj_out"])
+
+
+def _encoder_trunk(sd, net, channel_mult, num_res_blocks, attention_resolutions) -> int:
+    """time_embed, input_blocks (and their numbering) and middle_block, as
+    UNet1D and EncoderUNet1D share them; returns the downsample rate."""
+    _dense(sd, "time_embed.0", net["time_embed_0"])
+    _dense(sd, "time_embed.2", net["time_embed_2"])
+    _convk(sd, "input_blocks.0.0", net["in_conv"])
+    idx, ds = 1, 1
+    for level in range(len(channel_mult)):
+        for i in range(num_res_blocks):
+            _res_block(sd, f"input_blocks.{idx}.0", net[f"down_{level}_{i}"])
+            if ds in attention_resolutions:
+                _attn_site(sd, f"input_blocks.{idx}.1", net[f"down_attn_{level}_{i}"])
+            idx += 1
+        if level != len(channel_mult) - 1:
+            if f"downsample_{level}" in net:  # conv_resample=False has no weights
+                _convk(sd, f"input_blocks.{idx}.0.op", net[f"downsample_{level}"]["op"])
+            idx += 1
+            ds *= 2
+    _res_block(sd, "middle_block.0", net["mid_res_0"])
+    _attn_site(sd, "middle_block.1", net["mid_attn"])
+    _res_block(sd, "middle_block.2", net["mid_res_1"])
+    return ds
+
+
+def unet1d_state_from_flax(params, channel_mult=(1, 2, 4, 4), num_res_blocks: int = 2,
+                           attention_resolutions=(4, 2, 1)) -> StateDict:
+    """UNet1D's Flax params → the port's UNet1D state dict (upstream keys), at
+    every setting of the JAX module: scale-shift norm (a twice-wide
+    `emb_layers.1`), conv_resample off (no resampling weights) and the
+    spatial transformer at the attention sites."""
+    unet = params
+    sd: StateDict = {}
+    ds = _encoder_trunk(sd, unet, channel_mult, num_res_blocks, attention_resolutions)
     _groupnorm(sd, "out.0", unet["GroupNorm32_0"])
     _convk(sd, "out.2", unet["out_conv"])
     if "label_emb" in unet:
         sd["label_emb.weight"] = _t(unet["label_emb"]["embedding"])
     if "context_proj" in unet:
         _dense(sd, "sketch_emb", unet["context_proj"])
-
-    idx, ds = 1, 1
-    for level in range(len(channel_mult)):
-        for i in range(num_res_blocks):
-            res(f"input_blocks.{idx}.0", unet[f"down_{level}_{i}"])
-            if ds in attention_resolutions:
-                attn(f"input_blocks.{idx}.1", unet[f"down_attn_{level}_{i}"])
-            idx += 1
-        if level != len(channel_mult) - 1:
-            _convk(sd, f"input_blocks.{idx}.0.op", unet[f"downsample_{level}"]["op"])
-            idx += 1
-            ds *= 2
-
-    res("middle_block.0", unet["mid_res_0"])
-    attn("middle_block.1", unet["mid_attn"])
-    res("middle_block.2", unet["mid_res_1"])
-
     idx = 0
     for level in reversed(range(len(channel_mult))):
         for i in range(num_res_blocks + 1):
-            res(f"output_blocks.{idx}.0", unet[f"up_{level}_{i}"])
+            _res_block(sd, f"output_blocks.{idx}.0", unet[f"up_{level}_{i}"])
             pos = 1
             if ds in attention_resolutions:
-                attn(f"output_blocks.{idx}.{pos}", unet[f"up_attn_{level}_{i}"])
+                _attn_site(sd, f"output_blocks.{idx}.{pos}", unet[f"up_attn_{level}_{i}"])
                 pos += 1
             if level and i == num_res_blocks:
-                _convk(sd, f"output_blocks.{idx}.{pos}.conv", unet[f"upsample_{level}"]["conv"])
+                if f"upsample_{level}" in unet:
+                    _convk(sd, f"output_blocks.{idx}.{pos}.conv", unet[f"upsample_{level}"]["conv"])
                 ds //= 2
             idx += 1
+    return sd
+
+
+def mdm_state_from_flax(variables, channel_mult=(1, 2, 4, 4), num_res_blocks: int = 2,
+                        attention_resolutions=(4, 2, 1)) -> StateDict:
+    """MDM {'params': {'unet': ...}} → `Unet.*` state dict (null row kept)."""
+    sd = unet1d_state_from_flax(variables["params"]["unet"], channel_mult, num_res_blocks,
+                                attention_resolutions)
     return {"Unet." + k: v for k, v in sd.items()}
+
+
+def encoder_unet_state_from_flax(variables, channel_mult=(1, 2, 4, 4), num_res_blocks: int = 2,
+                                 attention_resolutions=(4, 2, 1), pool: str = "adaptive"
+                                 ) -> StateDict:
+    """EncoderUNet1D {'params': ...} → the port's state dict in upstream
+    `EncoderUNetModel` keys (`time_embed`, `input_blocks`, `middle_block`,
+    `out`), which the JAX package's `convert_encoder_unet` reads back."""
+    net = variables["params"]
+    sd: StateDict = {}
+    _encoder_trunk(sd, net, channel_mult, num_res_blocks, attention_resolutions)
+    if pool == "adaptive":
+        _groupnorm(sd, "out.0", net["GroupNorm32_0"])
+        _convk(sd, "out.3", net["out_conv"])
+    elif pool == "attention":
+        _groupnorm(sd, "out.0", net["GroupNorm32_0"])
+        ap = net["attn_pool"]
+        sd["out.2.positional_embedding"] = _t(np.asarray(ap["positional_embedding"]).T)
+        _convk(sd, "out.2.qkv_proj", ap["qkv_proj"])
+        _convk(sd, "out.2.c_proj", ap["c_proj"])
+    else:
+        _dense(sd, "out.0", net["out_0"])
+        if pool == "spatial_v2":
+            _groupnorm(sd, "out.1", net["GroupNorm32_0"])
+            _dense(sd, "out.3", net["out_3"])
+        else:
+            _dense(sd, "out.2", net["out_3"])
+    return sd
+
+
+def grid_ae_state_from_flax(variables) -> StateDict:
+    """GridAutoencoder {'params': ...} (channel-last Flax) → the port's
+    channel-first state dict: Conv kernels (kd, kh, kw, in, out) → (out, in,
+    kd, kh, kw), Dense kernels transposed, names as models/grid_ae.py."""
+    params = variables["params"]
+    sd: StateDict = {}
+
+    def conv3(prefix, p):
+        sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(4, 3, 0, 1, 2))
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+    def res(prefix, p):
+        _groupnorm(sd, f"{prefix}.norm1", p["GroupNorm32_0"])
+        conv3(f"{prefix}.conv1", p["conv1"])
+        _groupnorm(sd, f"{prefix}.norm2", p["GroupNorm32_1"])
+        conv3(f"{prefix}.conv2", p["conv2"])
+        if "shortcut" in p:
+            conv3(f"{prefix}.shortcut", p["shortcut"])
+
+    conv3("conv_in", params["conv_in"])
+    conv3("to_latent", params["to_latent"])
+    conv3("from_latent", params["from_latent"])
+    conv3("conv_out", params["conv_out"])
+    _groupnorm(sd, "out_norm", params["out_norm"])
+    attn = params["mid_attn"]
+    _groupnorm(sd, "mid_attn.norm", attn["GroupNorm32_0"])
+    for n in ("q", "k", "v", "proj_out"):
+        _dense(sd, f"mid_attn.{n}", attn[n])
+    for kind, fill in (("down_res", res), ("up_res", res),
+                       ("downs", lambda pre, p: conv3(f"{pre}.conv", p["Conv_0"])),
+                       ("ups", lambda pre, p: conv3(f"{pre}.conv", p["Conv_0"]))):
+        i = 0
+        while f"{kind}_{i}" in params:
+            fill(f"{kind}.{i}", params[f"{kind}_{i}"])
+            i += 1
+    return sd
 
 
 def pad_null_class_row(sd: StateDict, num_actions: int) -> StateDict:

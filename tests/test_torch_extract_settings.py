@@ -66,8 +66,8 @@ def _threads():
 
 
 def test_config_fields_match_jax():
-    """Every field of JAX's config but its device mesh, with its default."""
-    want = {f.name: f.default for f in dataclasses.fields(JaxConfig) if f.name != "mesh"}
+    """Every field of JAX's config, its device mesh included, with its default."""
+    want = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
     got = {f.name: f.default for f in dataclasses.fields(MeshExtractionConfig)}
     assert got == want
 

@@ -560,3 +560,32 @@ def test_marching_oracles_on_fixture(cuda):
     assert len(m_np.faces) == len(m_cc.faces) == len(m_lazy.faces) > 10_000
     assert hausdorff_distance(m_np.vertices, m_cc.vertices) < 1e-5
     assert hausdorff_distance(m_lazy.vertices, m_cc.vertices) < 1e-5
+
+
+@pytest.mark.cuda
+def test_classifier_guidance_gradient_runs_k2_bwd(cuda, monkeypatch):
+    """make_classifier_cond_fn on the default EncoderUNet1D (224 channels,
+    seven attention blocks), called under no_grad as the samplers call it:
+    K2 and K2-bwd launch 7 times each, and the gradient equals the one with
+    both swapped for their plain versions (here only) within K2-bwd's bar
+    of max(1, max |g|); the rest of the card's work is the same in both."""
+    from surfd_tpu_torch.models import EncoderUNet1D, make_classifier_cond_fn
+
+    clf = EncoderUNet1D(out_channels=9).random_init_(torch.Generator().manual_seed(12))
+    clf = clf.eval().to(cuda)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 32, 1, generator=g).to(cuda)
+    t = torch.tensor([40, 700], device=cuda)
+    cond_fn = make_classifier_cond_fn(clf, torch.tensor([2, 7], device=cuda), 1.0)
+    ak.qkv_attention.launches.clear()
+    ak.qkv_attention_bwd.launches.clear()
+    with torch.no_grad():
+        got = cond_fn(x, t)
+    assert sum(ak.qkv_attention.launches.values()) == 7
+    assert sum(ak.qkv_attention_bwd.launches.values()) == 7
+    monkeypatch.setattr(ak, "_launch_fwd", ak.qkv_attention_ref)
+    monkeypatch.setattr(ak, "qkv_attention_bwd", ak.qkv_attention_bwd_ref)
+    with torch.no_grad():
+        want = cond_fn(x, t)
+    assert float(want.abs().max()) > 0
+    assert float((got - want).abs().max()) <= K2_BWD_BAR * max(1.0, float(want.abs().max()))
