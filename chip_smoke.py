@@ -29,9 +29,13 @@ Phases, each fatal on failure:
   4. extraction: the shipped trained sheet decoder at 256^3 with
      surface_bias="auto" through get_mesh_from_udf — the JAX package's bars
      (tests/test_e2e_fixture.py), the face count within 1 % of the JAX
-     package's, and K1 on the path, no plain version;
+     package's, and K1 on the path, no plain version; then in turns with
+     the synchronous grid-query stream (sync, async): every mesh equal to
+     the first, K1 launches equal, the stage times the overlap moves
+     logged; the near-band gradient query alone, its start and fetch timed
+     and its kernels profiled;
   4b. extraction settings (phase `settings`) on the same fixture: (a) at
-     256^3, the unquantised face filter, no filter (the numpy cleanup) and
+     128^3, the unquantised face filter, no filter (the numpy cleanup) and
      no cleanup, each beside a default run (stage times; no out-of-domain
      vertex or face explosion; the unquantised run within 1 % of the
      default's faces and 0.1 voxel of mean NN), and filter_faces_by_udf
@@ -42,13 +46,15 @@ Phases, each fatal on failure:
      at 128^3, one dense autograd gradient grid read as int8 units: numpy
      marching equal to the native passes, and those to native marching on
      the lazy int8 gradients by grid id (equal faces, Hausdorff < 1e-5);
-     (d) the analytic sphere and torus as torch callables on the card,
+     the gradient-vote oracle at 64^3, logged; (d) the analytic sphere and torus as torch callables on the card,
      RMS Chamfer < 0.5 voxel and Hausdorff < 1.5 voxel to the surface;
   5. generation at the JAX package's breadth: category CFG sampling with
      the full-width category MDM, guidance 2.5, B = 2 (K2 at B 4), ddim50 —
      DDIM at eta 0 twice (bit-equal), against the port's own CPU run on the
      same weights and noise (max abs <= 1e-3), K2 exactly 800 launches;
-     PLMS order 2, K2 exactly 816; the watertight sheet at 256^3 (faces
+     PLMS order 2, K2 exactly 816; the MDM with dtype bfloat16 (one pass
+     bit-equal to the f32 MDM on the bf16-rounded input, its DDIM within
+     1e-3 of the port's CPU run); the watertight sheet at 256^3 (faces
      within 1 % of the JAX package's, one component, max |v| = 1, K1 f32
      launched); the batch generator, two 256^3 extractions on two latents
      at depth 1 and depth 2, bit-equal;
@@ -57,9 +63,10 @@ Phases, each fatal on failure:
      (kNN neighbour sets equal on >= 99.9 % of rows, latent max abs <=
      6e-5), timed at B 1 and B 8 with its peak memory; one 512^3 extraction
      of the sheet fixture (stage times, faces beside the JAX package's
-     count); the export CLI at --config deepfashion3d on a two-item corpus
+     count); the export CLI at --config deepfashion3d on a one-item corpus
      (n_empty 0, Chamfer < 0.008 on the sample-only item), then again with
-     --resume (the same recon_metrics.json); K1 f32 and bf16 launched, K2 not;
+     --resume (the same recon_metrics.json), these two run ahead (below) and
+     counted here; K1 f32 and bf16 launched, K2 not;
   7. text, sketch and image conditioning at latent 64 (the text2shape and
      pix3d presets): CLIP ViT-B/32 at its published widths with seeded
      weights, on prompts tokenised by the port's BPE copy (one past 77
@@ -71,7 +78,7 @@ Phases, each fatal on failure:
      exactly 800 launches; generate_text, generate_sketch, generate_image
      and encode_contexts --mode sketch in subprocesses at 128^3 (a CLIP npz
      written by save_clip_params, the sheet fixture's decoder planted to
-     ignore the latent), each reporting its kernel launches and no
+     ignore the latent), all four at once, each reporting its kernel launches and no
      plain-version call;
   8. diffusion training, the full-width category MDM at B 2, latent 32: 3
      train steps on the card against the port's own CPU run (same init,
@@ -79,13 +86,20 @@ Phases, each fatal on failure:
      each step's loss, step 1's gradients, and the params and EMA after
      the steps within TRAIN_BARS; four planted faults (the attention output
      detached, TF32 on, the optimizer step skipped, the EMA not updated)
-     must each fail their bar; 50
+     must each fail their bar; the same 3 steps with use_remat and res-block
+     dropout 0.1 (a seeded CUDA generator) against them without remat,
+     both with cuDNN's deterministic algorithms, within TRAIN_BARS (bit
+     equality logged), with equal K2 / K2-bwd launches and the generator
+     in the same state after, two planted remat faults (the mask redrawn in
+     the recomputation, the checkpoint's input detached) failing their bar,
+     and ms a step and peak memory with remat off and on at B 2 and 32; 20
      steps timed (ms a step, peak memory, device busy share) and 20 of the
      latent-64 sketch MDM, each with exactly 16 K2 and 16 K2-bwd launches a
      step; train_diffusion --cond_mode category --precompute_latents in a
-     subprocess on phase recon's two-item corpus, 20 steps, then --resume
-     to 30, then generate_cat --model_path <save_dir> (ddim50, 128^3, the
-     planted sheet decoder) reading the run;
+     subprocess on phase recon's two-item corpus, 10 steps, then --resume
+     to 20, then generate_cat --model_path <save_dir> (ddim50, 128^3, the
+     planted sheet decoder) reading the run, these subprocesses while the
+     phase's checks run, its timings after them;
   9. AE training at the deepfashion3d preset (latent 32, the CBN decoder 512
      wide with 5 blocks, DGCNN k 20): 4 steps (the third skipped on a NaN
      cloud) at B 2 x 10,000 cloud points x 4,096 queries on the card against
@@ -98,7 +112,7 @@ Phases, each fatal on failure:
      memory, device busy share, kernels a step, the top kernels); then the
      CLI chain in subprocesses: preprocess_udfs on 14 meshes written with
      numpy (the sheet fixture's 128^3 extraction among them) at its
-     defaults, train_ae --config deepfashion3d --curriculum for 6 epochs,
+     defaults (both splits at once), train_ae --config deepfashion3d --curriculum for 6 epochs,
      --resume to 10 (the curriculum grows 8 -> 11 -> 12, the steps resume),
      its npz pair equal to its last checkpoint, and export_meshes at 128^3
      reading the run (K1 f32 and bf16 launched); no hand-written kernel runs
@@ -111,7 +125,8 @@ Phases, each fatal on failure:
      256^3 with cfg.mesh against the unsharded run (faces equal, vertices <=
      1e-6, K1 f32 launches equal) and the batch generator at depth 2 on the
      mesh; train_diffusion (10 steps) and generate_uncond --data_parallel
-     under `torch.distributed.run --standalone --nproc_per_node 1`;
+     under `torch.distributed.run --standalone --nproc_per_node 1`, both at
+     once;
      classifier guidance of the full-width MDM by the default EncoderUNet1D
      over 50 DDPM steps against the port's CPU run (<= 1e-3; K2 23 and K2-bwd
      7 launches a step, the guidance gradient through K2-bwd; the
@@ -120,9 +135,14 @@ Phases, each fatal on failure:
      (VESTIGIAL_BARS; TF32 on must fail them; no hand-written kernel);
   11. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
      turns with SDPA's;
-  12. the generation CLIs write OBJs: generate_uncond (DDPM), generate_cat
+  12. the generation CLIs write OBJs, all three at once: generate_uncond (DDPM), generate_cat
      (DDIM, guidance 2.5, two extractions at a time) and generate_uncond
      (PLMS, watertight).
+
+The CLIs of phase 12 and those of phases 6 and 7 need no state of the phases:
+they run while the CPU references of the counted phases are computed (the
+card is idle then) and are joined before phase 3 starts, so that every
+timed phase runs alone.
 
 Phases 3-10 and 4b are the main path: each runs with the launch counts set
 to 0 just before it and read just after, and no plain version may run in
@@ -152,7 +172,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -323,7 +345,7 @@ def phase_build():
     return hgmma
 
 
-def device_us_per_call(fn, name: str, calls: int = 200, grids: bool = False) -> tuple:
+def device_us_per_call(fn, name: str, calls: int = 100, grids: bool = False) -> tuple:
     """Device-only time per call of fn, from torch.profiler over `calls`
     back-to-back calls: the mean time of each kernel whose name holds `name`,
     summed over those kernels (each launches once per call). Also returns the
@@ -578,7 +600,7 @@ def k2_device_times(rows, k2_calls):
         reading["library_device_us"], n_sdpa = device_us_per_call(sdpa, "")
         log(f"[kernels] {name} B {B} device-only: kernel {reading['device_us']:.2f} us, "
             f"SDPA {reading['library_device_us']:.2f} us (event-timed {reading['ms'] * 1e3:.2f} / "
-            f"{reading['library_ms'] * 1e3:.2f} us; launches recorded {n_k2} / {n_sdpa} of 200)")
+            f"{reading['library_ms'] * 1e3:.2f} us; launches recorded {n_k2} / {n_sdpa} of 100)")
         if bwd:
             # K2-bwd's grid is (R, H, B) for a cluster of R CTAs per (batch, head)
             if len(grids) != 1:
@@ -679,6 +701,7 @@ def phase_bars(dev):
 
 # Kernel launches that a path's subprocesses reported, by row name.
 CHILD_LAUNCHES: collections.Counter = collections.Counter()
+_CHILD_LOCK = threading.Lock()  # run_clis adds from several threads
 
 
 def reset_counts():
@@ -711,10 +734,10 @@ def plain_calls() -> int:
     return kernel_calls()["plain_calls"]
 
 
-def run_cli(module: str, argv: list, label: str):
+def run_cli(module: str, argv: list, label: str, sink=None):
     """One CLI of the port in a subprocess, which must make no plain-version
     call: its wall time, stderr lines and kernel launches (its last stderr
-    line), which go into CHILD_LAUNCHES."""
+    line), which go into `sink` (a Counter), else into CHILD_LAUNCHES."""
     from surfd_tpu_torch.cli._common import KERNEL_CALLS
 
     t0 = time.perf_counter()
@@ -725,12 +748,20 @@ def run_cli(module: str, argv: list, label: str):
         raise RuntimeError(f"{module} failed ({r.returncode}):\n{r.stderr[-4000:]}")
     lines = r.stderr.strip().splitlines()
     calls = json.loads(lines[-1].removeprefix(KERNEL_CALLS))
-    for line in lines[-4:]:
-        log(f"[{label}]   " + line)
+    log("\n".join(f"[{label}]   " + line for line in lines[-4:]))
     if calls["plain_calls"]:
         raise RuntimeError(f"{module}: {calls['plain_calls']} plain-version calls")
-    CHILD_LAUNCHES.update(calls["launches"])
+    with _CHILD_LOCK:
+        (CHILD_LAUNCHES if sink is None else sink).update(calls["launches"])
     return dt, lines, calls["launches"]
+
+
+def run_clis(jobs) -> list:
+    """run_cli over (module, argv, label) jobs, all at once: their
+    subprocesses' start-ups overlap. Each wall is taken while the others
+    run. The results come in the order of the jobs."""
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        return [f.result() for f in [ex.submit(run_cli, *job) for job in jobs]]
 
 
 def phase_sample(dev):
@@ -869,7 +900,31 @@ def phase_host(dev, calls: int = 10_000, rounds: int = 3):
                 f"over {calls} calls")
 
 
+def blocking_stream():
+    """The synchronous grid-query stream in place of eval_in_chunks_async
+    for the block: each query is fetched as soon as it is started, as before
+    the overlap (test code, not a setting of the package)."""
+    from unittest import mock
+
+    from surfd_tpu_torch.geometry import eval_in_chunks
+    from surfd_tpu_torch.pipelines import generate
+
+    def blocking(fn, pts, chunk, device=None, mesh=None):
+        res = eval_in_chunks(fn, pts, chunk, device=device, mesh=mesh)
+        return lambda: res
+
+    return mock.patch.object(generate, "eval_in_chunks_async", blocking)
+
+
+# the stage times the overlap moves, logged side by side in phase extract
+OVERLAP_STAGES = ("mt_unique", "mt_grads", "marching", "ff_prep", "ff_fetch", "face_filter")
+
+
 def phase_extract(dev):
+    """The sheet at 256^3 by the default (async) route against the JAX
+    package's bars, then in turns with the synchronous stream (sync, async):
+    every mesh the first one, equal K1 launches in the turns, stage times
+    logged; the gradient query alone (`gradient_query`)."""
     from surfd_tpu_torch.geometry.metrics import chamfer_distance
     from surfd_tpu_torch.ops import decoder_kernel as dk
     from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf, make_udf_fn
@@ -912,7 +967,52 @@ def phase_extract(dev):
         f"{stats['ff_threshold']!r}, tier 1 {'on' if stats['ff_two_tier'] else 'off'} "
         f"(on for resolutions below {0.25 / stats['ff_band']:.1f})")
     log(f"[extract] times {json.dumps(stats['times'])}")
-    return {"extract_s": dt, "chamfer": cd, "faces": len(mesh.faces)}
+    # the turns reuse the evaluator: its band calibration (one K1 launch of
+    # each precision) is cached, so their K1 launches are held to each other
+    turns, k1_turns = {"async": [(dt, stats["times"])], "sync": []}, []
+    for route in ("sync", "async"):
+        with blocking_stream() if route == "sync" else contextlib.nullcontext():
+            m, st, secs, k1_r = _extract(udf_fn, dev, resolution=256, surface_bias="auto")
+        k1_turns.append(k1_r)
+        if not _same_mesh(m, mesh) or k1_r != k1_turns[0]:
+            raise RuntimeError(f"extract: the {route} route's mesh or K1 launches {k1_r} differ "
+                               f"from the first run's ({len(m.faces)} faces; K1 {k1_turns[0]})")
+        turns[route].append((secs, st["times"]))
+    for route, runs in turns.items():
+        for secs, t in runs:
+            log(f"[extract] {route} route: same mesh, {secs:.2f}s, "
+                + ", ".join(f"{k} {t.get(k)}" for k in OVERLAP_STAGES))
+    return {"extract_s": dt, "chamfer": cd, "faces": len(mesh.faces), "turns": turns,
+            "grad_query": gradient_query(udf_fn, dev)}
+
+
+def gradient_query(udf_fn, dev, R: int = 256) -> dict:
+    """The near-band gradient query of the sheet at R^3 alone, as marching
+    starts it: host seconds until grad_i8_gid_async returns (the start) and
+    until its finalize returns (the fetch), in turns with the query's device
+    time under torch.profiler (kernels and their count)."""
+    from surfd_tpu_torch import native
+    from surfd_tpu_torch.geometry import GridFiller
+
+    voxel = 2.0 / (R - 1)
+    grid = GridFiller(R, max_dist=udf_fn.max_dist, surface_bias="auto", device=dev).fill(udf_fn)
+    _, gids = native.mt_active_cubes(grid, 1.74 * voxel, 1.05 * voxel)
+    query = lambda: udf_fn.grad_i8_gid_async(gids, R, -1.0, voxel)
+    starts, fetches = [], []
+    for _ in range(2):  # the extractions before warmed it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = query()
+        t1 = time.perf_counter()
+        pending()
+        starts.append(t1 - t0)
+        fetches.append(time.perf_counter() - t1)
+    wall_us, busy_us = _profiled(f"extract: the gradient query at {len(gids)} corners",
+                                 lambda: query()(), steps=1)
+    log(f"[extract] gradient query, {len(gids)} corners: start {starts} s, fetch {fetches} s "
+        f"(host clock, 2 runs)")
+    return {"corners": len(gids), "start_s": starts, "fetch_s": fetches, "wall_us": wall_us,
+            "busy_us": busy_us}
 
 
 # Phase settings: extraction at the MeshExtractionConfig settings besides the
@@ -926,9 +1026,10 @@ SETTINGS_RUNS = {  # (a): each beside the default run at SETTINGS_R
                                 "do_smooth_borders": False},
     "raw": {"filter_faces": False, "do_stabilize": False, "do_smooth_borders": False},
 }
-SETTINGS_R = 256
+SETTINGS_R = 128
 TIER_R = 32  # (b): the two-tier filter engages here, else at the largest R below
 ORACLE_R = 128  # (c)
+VOTE_R = 64  # (c): the vote oracle (a host Python BFS), cut from ORACLE_R to keep the run short
 # (c): numpy against native marching on the raw float32 gradients; faces as a
 # share of native's, Hausdorff in voxels. Set from the card's reading (0.0374 %,
 # 1.98 voxel on the H100): a crossing decided the other way in one cube moves
@@ -1105,8 +1206,8 @@ def settings_oracles(udf_fn, dev, R: int = ORACLE_R) -> dict:
       * On the raw float32 gradients, where the numpy path decides crossings
         on f32 dot products and the native one on their int8 rounding: the
         pair within ORACLE_F32_BARS.
-      * The gradient-vote sign oracle on the same grid and gradients: its
-        faces and its distance to either path, logged.
+      * The gradient-vote sign oracle on a grid and gradients of its own at
+        VOTE_R: its faces and its distance to either path there, logged.
     Also logged: how many active-cube corners round to another int8 on the
     dense and lazy routes."""
     from surfd_tpu_torch import native
@@ -1138,9 +1239,12 @@ def settings_oracles(udf_fn, dev, R: int = ORACLE_R) -> dict:
     f_np = marching_tetrahedra_udf(grid, dense, use_native=False)
     f_cc = marching_tetrahedra_udf(grid, dense)
     t5 = time.perf_counter()
+    vgf = GridFiller(VOTE_R, max_dist=udf_fn.max_dist, surface_bias="auto", device=dev)
+    vgrid = vgf.fill(udf_fn)
+    vdense = vgf.fill_gradients(make_grad_fn(udf_fn), vgrid)
     # the vote wants unit vectors toward the surface
-    toward = -dense / np.maximum(np.linalg.norm(dense, axis=-1, keepdims=True), 1e-12)
-    m_vote = marching_tetrahedra_vote(grid, toward)
+    toward = -vdense / np.maximum(np.linalg.norm(vdense, axis=-1, keepdims=True), 1e-12)
+    m_vote = marching_tetrahedra_vote(vgrid, toward)
     t6 = time.perf_counter()
     _, corners = native.mt_active_cubes(grid, 1.74 * voxel, 1.05 * voxel)
     differ = int((int8_units(dense.reshape(-1, 3)[corners]) != lazy(corners)).any(axis=1).sum())
@@ -1156,12 +1260,14 @@ def settings_oracles(udf_fn, dev, R: int = ORACLE_R) -> dict:
         f"{len(f_cc.faces)} ({100 * f32_gap:.4f} % apart), Hausdorff {hd_f32!r} "
         f"({hd_f32 / voxel:.4g} voxel), {t5 - t4:.2f}s; {differ} of {len(corners)} corner "
         f"gradients round to another int8 on the dense and lazy routes")
-    for name, m in (("numpy, float32", f_np), ("native, float32", f_cc)):
+    vvoxel = 2.0 / (VOTE_R - 1)
+    for name, m in (("numpy, float32", marching_tetrahedra_udf(vgrid, vdense, use_native=False)),
+                    ("native, float32", marching_tetrahedra_udf(vgrid, vdense))):
         rms = float(np.sqrt(chamfer_distance(m_vote.vertices, m.vertices) / 2.0))
         hd = hausdorff_distance(m_vote.vertices, m.vertices)
-        log(f"[settings] vote oracle at {R}^3: {len(m_vote.faces)} faces ({t6 - t5:.2f}s) against "
-            f"{name} {len(m.faces)}: {len(m_vote.faces) - len(m.faces):+d} faces, RMS "
-            f"{rms / voxel:.4g} voxel, Hausdorff {hd / voxel:.4g} voxel")
+        log(f"[settings] vote oracle at {VOTE_R}^3: {len(m_vote.faces)} faces ({t6 - t5:.2f}s) "
+            f"against {name} {len(m.faces)}: {len(m_vote.faces) - len(m.faces):+d} faces, RMS "
+            f"{rms / vvoxel:.4g} voxel, Hausdorff {hd / vvoxel:.4g} voxel")
     if not (len(m_np.faces) == len(m_cc.faces) and hd_np < 1e-5):
         raise RuntimeError("settings: numpy marching is off the native marching's bars")
     if not (len(m_lazy.faces) == len(m_cc.faces) and hd_lazy < 1e-5):
@@ -1233,12 +1339,12 @@ CFG_STEPS = "ddim50"  # category CFG sampling: cosine 1000 respaced to 50 DDIM s
 CFG_ACTIONS = (1, 4)  # one class per sample, B = 2; guidance makes the pass B 4
 
 
-def category_mdm():
+def category_mdm(dtype: torch.dtype = torch.float32):
     """The full-width category MDM (9 classes) with random weights from seed
-    0, on the CPU."""
+    0, on the CPU; `dtype` is MDM's (its input rounded to it)."""
     from surfd_tpu_torch.models import MDM
 
-    mdm = MDM(cond_mode="category", num_actions=9)
+    mdm = MDM(cond_mode="category", num_actions=9, dtype=dtype)
     mdm.Unet.random_init_(torch.Generator().manual_seed(0))
     return mdm.eval()
 
@@ -1283,10 +1389,11 @@ def boundary_vertices(mesh) -> int:
     return len(np.unique(np.concatenate([once // len(mesh.vertices), once % len(mesh.vertices)])))
 
 
-def phase_generate(dev, cfg_ref):
+def phase_generate(dev, cfg_ref, cfg_ref16):
     """Generation at the JAX package's breadth (phase 5): category CFG DDIM
-    and PLMS at full width, the watertight sheet at 256^3 and the batch
-    generator at depth 1 and 2. `cfg_ref`: the CPU run's DDIM latents."""
+    and PLMS at full width, the MDM with dtype bfloat16, the watertight
+    sheet at 256^3 and the batch generator at depth 1 and 2. `cfg_ref`,
+    `cfg_ref16`: the CPU run's DDIM latents, f32 and bf16-input MDM."""
     from surfd_tpu_torch.geometry.mesh_ops import face_components
     from surfd_tpu_torch.ops import attention_kernel as ak
     from surfd_tpu_torch.ops import decoder_kernel as dk
@@ -1323,6 +1430,32 @@ def phase_generate(dev, cfg_ref):
     log(f"[generate] PLMS order 2 over the same 50 steps: {tp:.2f}s, K2 launches 816, "
         f"latent std {float(lat.std()):.3f}")
     out = {"ddim_s": [ta, tb], "plms_s": tp, "ddim_card_vs_cpu": err}
+
+    # dtype=bfloat16: the input rounded, the network f32 (the JAX package's meaning)
+    from surfd_tpu_torch.models import MDM
+
+    f32_mdm, mdm = mdm, MDM(cond_mode="category", num_actions=9, dtype=torch.bfloat16)
+    mdm = mdm.to(dev).eval()
+    mdm.load_state_dict(f32_mdm.state_dict())
+    x = torch.from_numpy(np.random.default_rng(21).normal(size=(2, 32, 1)).astype(
+        np.float32)).to(dev)
+    tt, act = torch.tensor([10, 900], device=dev), category_actions(dev)
+    with torch.no_grad():
+        got = mdm(x, tt, action=act)
+        rounded = f32_mdm(x.to(torch.bfloat16).float(), tt, action=act)
+        raw = f32_mdm(x, tt, action=act)
+    moved = float((got - raw).abs().max())
+    if got.dtype != torch.float32 or not torch.equal(got, rounded) or moved == 0:
+        raise RuntimeError(f"bf16 MDM: {got.dtype}, equal to f32 on the rounded input "
+                           f"{torch.equal(got, rounded)}, moved {moved} from the raw input")
+    lat16, t16 = counted("ddim", 16 * 50)
+    err16 = float((lat16.cpu() - cfg_ref16).abs().max())
+    if not err16 <= 1e-3:
+        raise RuntimeError(f"bf16 MDM DDIM card vs CPU: max abs {err16} > 1e-3")
+    log(f"[generate] MDM dtype bfloat16: one pass bit-equal to f32 on the bf16-rounded input, "
+        f"{moved!r} from f32 on the raw input; CFG DDIM {t16:.2f}s, card vs CPU max abs "
+        f"{err16!r}, K2 launches 800")
+    out.update(bf16_ddim_card_vs_cpu=err16, bf16_moved=moved)
 
     dec, fx = load_fixture_decoder(dev)
     cfg = MeshExtractionConfig(resolution=256, surface_bias="auto")
@@ -1414,13 +1547,16 @@ def encoder_reference():
     return idx, lat, time.perf_counter() - t0
 
 
-def write_recon_corpus(root: str, dev) -> None:
+RECON_ITEMS = ("dress_000", "skirt_001")
+
+
+def write_recon_corpus(root: str, dev, items=RECON_ITEMS) -> None:
     """ae/ (the fixture decoder; the seeded encoder with its head planted:
     BatchNorm scale 1e-3 and shift the fixture latent, all positive, so the
     encoder outputs the fixture latent plus a small input-dependent term)
-    and data/test/ with two items, both the fixture's 20,000 samples as
-    their cloud; skirt_001 also carries a ground-truth mesh, the port's
-    256^3 extraction of the fixture latent on the card."""
+    and data/test/ with `items` of RECON_ITEMS, each with the fixture's
+    20,000 samples as its cloud; skirt_001 also carries a ground-truth mesh,
+    the port's 256^3 extraction of the fixture latent on the card."""
     from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf, make_udf_fn
     from surfd_tpu_torch.utils.convert import dgcnn_flat_from_state
 
@@ -1436,23 +1572,59 @@ def write_recon_corpus(root: str, dev) -> None:
         enc.bn_5.weight.fill_(1e-3)
         enc.bn_5.bias.copy_(torch.from_numpy(fx["latent"]))
     np.savez(os.path.join(ae, "ae_encoder.npz"), **dgcnn_flat_from_state(enc.state_dict()))
-    gt = get_mesh_from_udf(make_udf_fn(dec, None, torch.from_numpy(fx["latent"]),
-                                       fx["max_dist"], device=dev),
-                           cfg=MeshExtractionConfig(resolution=256, surface_bias="auto"))
     small = {"coords": np.zeros((8, 3), np.float32), "labels": np.zeros(8, np.float32),
              "gradients": np.zeros((8, 3), np.float32)}
     pcd = fx["surface_samples"]
-    np.savez(os.path.join(data, "dress_000.npz"), pcd=pcd, **small)
-    np.savez(os.path.join(data, "skirt_001.npz"), pcd=pcd, vertices=gt.vertices,
-             triangles=gt.faces.astype(np.int32), **small)
+    if "dress_000" in items:
+        np.savez(os.path.join(data, "dress_000.npz"), pcd=pcd, **small)
+    if "skirt_001" in items:
+        gt = get_mesh_from_udf(make_udf_fn(dec, None, torch.from_numpy(fx["latent"]),
+                                           fx["max_dist"], device=dev),
+                               cfg=MeshExtractionConfig(resolution=256, surface_bias="auto"))
+        np.savez(os.path.join(data, "skirt_001.npz"), pcd=pcd, vertices=gt.vertices,
+                 triangles=gt.faces.astype(np.int32), **small)
 
 
-def phase_recon(dev, enc_ref):
+def recon_cli_chain(dev) -> dict:
+    """(c) of phase recon: the export CLI at --config deepfashion3d on a
+    one-item corpus (phase ae's export reads ground-truth meshes), then
+    again with --resume, checked here; its launches go into the returned
+    Counter, which phase recon counts. It needs no state of the phases, so
+    it runs while the CPU references do."""
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_recon_corpus(tmp, dev, items=("dress_000",))
+        res_dir = os.path.join(tmp, "recon")
+        argv = ["--config", "deepfashion3d", "--surface_bias", "auto", "--data_root",
+                os.path.join(tmp, "data"), "--ae_dir", os.path.join(tmp, "ae"), "--output_dir",
+                res_dir]
+        summaries, walls, calls = [], [], []
+        for extra in ([], ["--resume"]):  # run_cli: no plain-version call in either
+            dt, _, launched = run_cli("export_meshes", argv + extra, "recon", sink=launches)
+            walls.append(dt)
+            calls.append(launched)
+            with open(os.path.join(res_dir, "recon_metrics.json")) as f:
+                summaries.append(json.load(f))
+    first, resumed = summaries
+    # the first run extracts the item through the kernels; the rerun extracts nothing
+    if not (calls[0]["folded_mlp_f32"] and calls[0]["folded_mlp_bf16"]):
+        raise RuntimeError(f"export_meshes: kernel launches {calls}")
+    rows = {row["id"]: row for row in first["per_item"]}
+    if first["n"] != 1 or first["n_empty"] != 0:
+        raise RuntimeError(f"export_meshes: n {first['n']}, n_empty {first['n_empty']}")
+    if not rows["dress_000"]["chamfer"] < 0.008:
+        raise RuntimeError(f"export_meshes: chamfer {rows['dress_000']['chamfer']} >= 0.008")
+    if resumed != first:
+        raise RuntimeError("export_meshes --resume wrote another recon_metrics.json")
+    return {"cli_s": walls, "cli_rows": first["per_item"], "launches": launches}
+
+
+def phase_recon(dev, enc_ref, chain):
     """The AE reconstruction eval at the deepfashion3d preset: (a) the
     seeded encoder at 10,000 points against the port's CPU run and timed at
     B 1 and B 8; (b) one direct 512^3 extraction of the sheet fixture;
-    (c) the export CLI at --config deepfashion3d on a two-item corpus,
-    then again with --resume. `enc_ref`: encoder_reference()."""
+    (c) `recon_cli_chain`'s result, `chain`, and its launches.
+    `enc_ref`: encoder_reference()."""
     from surfd_tpu_torch.geometry.metrics import chamfer_distance
     from surfd_tpu_torch.models import dgcnn
     from surfd_tpu_torch.ops import decoder_kernel as dk
@@ -1573,33 +1745,13 @@ def phase_recon(dev, enc_ref):
     out.update(extract_512_s=dt, faces_512=len(mesh.faces), times_512=stats["times"])
     del mesh, udf_fn
 
-    with tempfile.TemporaryDirectory() as tmp:
-        write_recon_corpus(tmp, dev)
-        res_dir = os.path.join(tmp, "recon")
-        argv = ["--config", "deepfashion3d", "--surface_bias", "auto", "--data_root",
-                os.path.join(tmp, "data"), "--ae_dir", os.path.join(tmp, "ae"), "--output_dir", res_dir]
-        summaries, walls, calls = [], [], []
-        for extra in ([], ["--resume"]):  # run_cli: no plain-version call in either
-            dt, _, launches = run_cli("export_meshes", argv + extra, "recon")
-            walls.append(dt)
-            calls.append(launches)
-            with open(os.path.join(res_dir, "recon_metrics.json")) as f:
-                summaries.append(json.load(f))
-        first, resumed = summaries
-        # the first run extracts both items through the kernels; the rerun extracts nothing
-        if not (calls[0]["folded_mlp_f32"] and calls[0]["folded_mlp_bf16"]):
-            raise RuntimeError(f"export_meshes: kernel launches {calls}")
-        rows = {row["id"]: row for row in first["per_item"]}
-        log(f"[recon] export_meshes --config deepfashion3d (latent 32, {RECON_POINTS} points, "
-            f"512^3), two items: {walls[0]:.1f}s; --resume {walls[1]:.1f}s; rows "
-            f"{json.dumps(first['per_item'])}")
-        if first["n"] != 2 or first["n_empty"] != 0:
-            raise RuntimeError(f"export_meshes: n {first['n']}, n_empty {first['n_empty']}")
-        if not rows["dress_000"]["chamfer"] < 0.008:
-            raise RuntimeError(f"export_meshes: chamfer {rows['dress_000']['chamfer']} >= 0.008")
-        if resumed != first:
-            raise RuntimeError("export_meshes --resume wrote another recon_metrics.json")
-        out.update(cli_s=walls, cli_rows=first["per_item"])
+    # (c), run during the CPU references (recon_cli_chain): its launches count here
+    with _CHILD_LOCK:
+        CHILD_LAUNCHES.update(chain["launches"])
+    log(f"[recon] export_meshes --config deepfashion3d (latent 32, {RECON_POINTS} points, "
+        f"512^3), one item: {chain['cli_s'][0]:.1f}s; --resume {chain['cli_s'][1]:.1f}s (during "
+        f"the CPU references); rows {json.dumps(chain['cli_rows'])}")
+    out.update(cli_s=chain["cli_s"], cli_rows=chain["cli_rows"])
 
     counts = launch_counts()  # with the CLI's own, which run_cli added
     k2 = sum(n for name, n in counts.items() if name.startswith("qkv_attention"))
@@ -1705,26 +1857,85 @@ def sketch_image(seed: int) -> np.ndarray:
     return img
 
 
-def phase_condition(dev, ref):
+def condition_cli_chain() -> dict:
+    """(c) of phase condition: generate_text, encode_contexts --mode sketch,
+    generate_sketch and generate_image in subprocesses at 128^3, all at
+    once, with a CLIP npz of seeded_clip() written by save_clip_params and a
+    planted decoder; their outputs checked here, their launches into the
+    returned Counter. It needs no state of the phases, so it runs while the
+    CPU references do. Returns the temp dir too: phase condition holds the
+    contexts to its own CLIP, then removes it."""
+    import re
+
+    from PIL import Image
+
+    from surfd_tpu_torch.utils.convert import save_clip_params
+
+    launches = collections.Counter()
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = tmpdir.name
+    try:
+        npz = os.path.join(tmp, "clip.npz")
+        save_clip_params(npz, seeded_clip())
+        ae = os.path.join(tmp, "ae")
+        write_planted_decoder(ae)
+        img, mask = condition_image()
+        paths = {"image": os.path.join(tmp, "image.png"), "mask": os.path.join(tmp, "mask.png")}
+        Image.fromarray(img).save(paths["image"])
+        Image.fromarray(mask.astype(np.uint8) * 255).save(paths["mask"])
+        for fid, seed in (("a01", 1), ("b02", 2)):
+            os.makedirs(os.path.join(tmp, "data", "train", "chair"), exist_ok=True)
+            np.savez(os.path.join(tmp, "data", "train", "chair", f"{fid}.npz"), x=np.zeros(1))
+            os.makedirs(os.path.join(tmp, "sketches", fid))
+            Image.fromarray(sketch_image(seed)).save(
+                os.path.join(tmp, "sketches", fid, "sketch_0.png"))
+        gen = ["--random-init", "--ae_dir", ae, "--clip_npz", npz, "--resolution", str(COND_RES),
+               "--sampler", "ddim", "--timestep_respacing", CFG_STEPS, "--guidance_param", "2.5",
+               "--num_samples", "1"]
+        sketch_png = os.path.join(tmp, "sketches", "a01", "sketch_0.png")
+        runs = (("generate_text", ["--text_prompt", COND_PROMPTS[0]], "text"),
+                ("generate_sketch", ["--sketch_path", sketch_png], "sketch"),
+                ("generate_image", ["--image_path", paths["image"], "--mask_path",
+                                    paths["mask"]], "img"))
+        results = run_clis(
+            [(module, gen + extra + ["--output_dir", os.path.join(tmp, f"out_{tag}")],
+              "condition", launches) for module, extra, tag in runs]
+            + [("encode_contexts", ["--data_root", os.path.join(tmp, "data"), "--image_root",
+                                    os.path.join(tmp, "sketches"), "--mode", "sketch",
+                                    "--clip_npz", npz], "condition", launches)])
+        walls, done = {}, []
+        for (module, _, tag), (dt, lines, launched) in zip(runs, results):
+            res = os.path.join(tmp, f"out_{tag}")
+            faces = [int(m.group(1)) for m in map(re.compile(r"verts / (\d+) faces").search, lines)
+                     if m]
+            k2 = sum(n for name, n in launched.items() if name.startswith("qkv_attention"))
+            if (os.listdir(res) != [f"{tag}_0.obj"] or not faces or faces[0] <= 10_000
+                    or not launched["folded_mlp_f32"] or k2 != 800):
+                raise RuntimeError(f"{module}: wrote {os.listdir(res)}, faces {faces}, "
+                                   f"launches {launched}")
+            walls[module] = dt
+            done.append((module, faces[0], dt, launched))
+        walls["encode_contexts"] = results[-1][0]
+    except BaseException:
+        tmpdir.cleanup()
+        raise
+    return {"tmp": tmpdir, "runs": done, "walls": walls, "launches": launches}
+
+
+def phase_condition(dev, ref, chain):
     """Text, sketch and image conditioning at latent 64: (a) CLIP ViT-B/32
     at its published widths (seeded) on prompts and on a masked image
     through image_context, against the port's CPU run, with TF32 planted as
     a fault, timed at B 1 and 16; (b) the full-width text MDM, CFG 2.5 at
     B 2 over ddim50 from (a)'s context, against the CPU run (K2 exactly
-    800 launches); (c) generate_text, encode_contexts --mode sketch,
-    generate_sketch and generate_image in subprocesses at 128^3, with a
-    CLIP npz written by save_clip_params and a planted decoder.
-    `ref`: condition_reference()."""
-    import re
-
-    from PIL import Image
-
+    800 launches); (c) `condition_cli_chain`'s result, `chain`: its
+    contexts held to this CLIP, its launches counted. `ref`:
+    condition_reference()."""
     from surfd_tpu_torch.cli.generate_image import clip_input, image_context
     from surfd_tpu_torch.cli._common import read_rgb
     from surfd_tpu_torch.models.clip import get_tokenizer, tokenize
     from surfd_tpu_torch.ops import attention_kernel as ak
     from surfd_tpu_torch.utils import use_full_f32
-    from surfd_tpu_torch.utils.convert import save_clip_params
 
     out = {}
     clip = seeded_clip().to(dev)
@@ -1783,49 +1994,13 @@ def phase_condition(dev, ref):
     out.update(ddim_s=dt, ddim_card_vs_cpu=err)
     del mdm
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        npz = os.path.join(tmp, "clip.npz")
-        save_clip_params(npz, clip.cpu())
-        clip.to(dev)
-        ae = os.path.join(tmp, "ae")
-        write_planted_decoder(ae)
-        paths = {"image": os.path.join(tmp, "image.png"), "mask": os.path.join(tmp, "mask.png")}
-        Image.fromarray(img).save(paths["image"])
-        Image.fromarray(mask.astype(np.uint8) * 255).save(paths["mask"])
-        for fid, seed in (("a01", 1), ("b02", 2)):
-            os.makedirs(os.path.join(tmp, "data", "train", "chair"), exist_ok=True)
-            np.savez(os.path.join(tmp, "data", "train", "chair", f"{fid}.npz"), x=np.zeros(1))
-            os.makedirs(os.path.join(tmp, "sketches", fid))
-            Image.fromarray(sketch_image(seed)).save(os.path.join(tmp, "sketches", fid, "sketch_0.png"))
-        log(f"[condition] CLI inputs written in {time.perf_counter() - t0:.1f}s (CLIP npz "
-            f"{os.path.getsize(npz) / 2**20:.0f} MiB)")
-        gen = ["--random-init", "--ae_dir", ae, "--clip_npz", npz, "--resolution", str(COND_RES),
-               "--sampler", "ddim", "--timestep_respacing", CFG_STEPS, "--guidance_param", "2.5",
-               "--num_samples", "1"]
-        sketch_png = os.path.join(tmp, "sketches", "a01", "sketch_0.png")
-        walls = {}
-        for module, extra, tag in (
-                ("generate_text", ["--text_prompt", COND_PROMPTS[0]], "text"),
-                ("generate_sketch", ["--sketch_path", sketch_png], "sketch"),
-                ("generate_image", ["--image_path", paths["image"], "--mask_path", paths["mask"]],
-                 "img")):
-            res = os.path.join(tmp, f"out_{tag}")
-            dt, lines, launches = run_cli(module, gen + extra + ["--output_dir", res], "condition")
-            faces = [int(m.group(1)) for m in map(re.compile(r"verts / (\d+) faces").search, lines)
-                     if m]
-            k2 = sum(n for name, n in launches.items() if name.startswith("qkv_attention"))
-            if (os.listdir(res) != [f"{tag}_0.obj"] or not faces or faces[0] <= 10_000
-                    or not launches["folded_mlp_f32"] or k2 != 800):
-                raise RuntimeError(f"{module}: wrote {os.listdir(res)}, faces {faces}, "
-                                   f"launches {launches}")
-            walls[module] = dt
+    # (c), run during the CPU references (condition_cli_chain): its launches count here
+    try:
+        for module, faces, dt, launched in chain["runs"]:
             log(f"[condition] {module} (latent {COND_LATENT}, {COND_RES}^3, ddim50 CFG 2.5): "
-                f"{dt:.1f}s, {faces[0]} faces, launches {json.dumps(launches)}")
-        dt, _, _ = run_cli("encode_contexts", [
-            "--data_root", os.path.join(tmp, "data"), "--image_root", os.path.join(tmp, "sketches"),
-            "--mode", "sketch", "--clip_npz", npz], "condition")
-        walls["encode_contexts"] = dt
+                f"{dt:.1f}s (the four CLIs at once, during the CPU references), {faces} faces, "
+                f"launches {json.dumps(launched)}")
+        tmp = chain["tmp"].name
         ctx_dir = os.path.join(tmp, "data", "train", "chair")
         with torch.no_grad():
             for fid in ("a01", "b02"):
@@ -1835,9 +2010,14 @@ def phase_condition(dev, ref):
                 gap = float((got - want).abs().max())
                 if not gap <= COND_CLIP_BAR:
                     raise RuntimeError(f"encode_contexts: {fid} {gap} from the in-process encode")
-        log(f"[condition] encode_contexts --mode sketch, two items: {dt:.1f}s, .context.npy "
-            f"within {COND_CLIP_BAR:g} of this process's encode")
-        out["cli_s"] = walls
+    finally:
+        chain["tmp"].cleanup()
+    log(f"[condition] encode_contexts --mode sketch, two items: "
+        f"{chain['walls']['encode_contexts']:.1f}s, .context.npy within {COND_CLIP_BAR:g} of "
+        f"this process's encode")
+    with _CHILD_LOCK:
+        CHILD_LAUNCHES.update(chain["launches"])
+    out["cli_s"] = chain["walls"]
     counts = launch_counts()
     k2_64 = {f"qkv_attention_T{T}_c{c}": counts.get(f"qkv_attention_T{T}_c{c}", 0)
              for T, c, B in K2_TIMED if B == 4}
@@ -1872,8 +2052,20 @@ TRAIN_BARS = {"loss": 1e-5, "grad_tensor": 3e-4, "grad_global": 5e-5, "params": 
 # The planted faults of phase train, each with the bar that must catch it.
 TRAIN_FAULTS = {"attention output detached": "grad_global", "TF32 on": "grad_global",
                 "optimizer step skipped": "params", "EMA not updated": "ema"}
-TRAIN_TIMED = 50  # steps timed at latent 32
+TRAIN_TIMED = 20  # steps timed at latent 32
 TRAIN_TIMED_64 = 20  # steps of the latent-64 MDM (text2shape / pix3d presets)
+# use_remat (phase train): the category MDM with res-block dropout 0.1 from a
+# seeded CUDA generator, remat on against off, within TRAIN_BARS; each planted
+# fault must fail its bar, and the generator must end in the same state. The
+# runs compared take cuDNN's deterministic algorithms: with its default ones
+# two plain runs with dropout read params 1.96e-4 and EMA 5.31e-5 apart on an
+# NVIDIA H100 80GB HBM3 at 700 W, over TRAIN_BARS (remat_checks logs that
+# spread in every run); deterministic, they and the remat run are bit-equal.
+REMAT_DROPOUT = 0.1
+REMAT_FAULTS = {"mask redrawn in the recomputation": "grad_global",
+                "checkpoint input detached": "grad_global"}
+REMAT_TIMED = 10  # steps timed at each batch, remat on and off
+REMAT_BATCHES = (2, 32)
 
 
 def train_inputs(L: int = 32, steps: int = TRAIN_STEPS, seed: int = 30):
@@ -1891,16 +2083,18 @@ def train_inputs(L: int = 32, steps: int = TRAIN_STEPS, seed: int = 30):
     return out
 
 
-def train_run(dev, init: dict, mesh=None) -> dict:
+def train_run(dev, init: dict, mesh=None, generator=None, **mdm_kw) -> dict:
     """The category MDM from the state dict `init` trained TRAIN_STEPS steps
     on `dev` from train_inputs(), EMA on: each step's loss, step 1's
     gradients (on the CPU; a parameter that got none reads zeros), then the
-    params and EMA. `mesh`: data parallel (DDP) over its 'data' axis."""
+    params and EMA. `mesh`: data parallel (DDP) over its 'data' axis.
+    `generator`: the steps' torch.Generator (the res-block dropout's draws);
+    `mdm_kw`: MDM's settings (dropout, use_remat)."""
     from surfd_tpu_torch.diffusion import named_schedule
     from surfd_tpu_torch.models import MDM
     from surfd_tpu_torch.training import create_train_state, make_optimizer, make_train_step
 
-    mdm = MDM(cond_mode="category", num_actions=9)
+    mdm = MDM(cond_mode="category", num_actions=9, **mdm_kw)
     mdm.load_state_dict(init, strict=True)
     mdm.to(dev)
     state = create_train_state(mdm, make_optimizer(mdm.parameters(), 1e-4), ema_rate=TRAIN_EMA)
@@ -1909,12 +2103,13 @@ def train_run(dev, init: dict, mesh=None) -> dict:
     out = {"loss": []}
     for k, (batch, t, w, noise, drop) in enumerate(train_inputs()):
         if k == 0:
-            loss, _ = step.loss_fn(batch, t, w, noise=noise, cond_drop=drop)
+            loss, _ = step.loss_fn(batch, t, w, noise=noise, cond_drop=drop, generator=generator)
             loss.backward()
             out["grads"] = {n: (p.grad if p.grad is not None else torch.zeros_like(p)
                                 ).detach().cpu() for n, p in mdm.named_parameters()}
             mdm.zero_grad(set_to_none=True)
-        out["loss"].append(float(step(state, batch, t, w, noise=noise, cond_drop=drop)["loss"]))
+        out["loss"].append(float(step(state, batch, t, w, noise=noise, cond_drop=drop,
+                                      generator=generator)["loss"]))
     out["params"] = {n: p.detach().cpu() for n, p in mdm.named_parameters()}
     out["ema"] = {n: e.cpu() for n, e in zip(out["params"], state.ema)}
     return out
@@ -1995,12 +2190,13 @@ def _k2_counts() -> tuple:
 
 
 def time_train_steps(mdm, dev, cond: str, L: int, steps: int, label: str,
-                     profiled: bool = False, mesh=None) -> dict:
-    """`steps` train steps of `mdm` through DiffusionTrainer.run (numpy
-    batches, uniform timesteps, noise and masks from a CUDA generator), after
-    5 steps of warm-up: ms a step on the host clock, peak memory allocated,
-    K2 and K2-bwd launches (exactly 16 each a step); with `profiled`, the
-    device busy share of 10 more steps under torch.profiler; `mesh`: DDP."""
+                     profiled: bool = False, mesh=None, B: int = 2) -> dict:
+    """`steps` train steps of `mdm` at batch B through DiffusionTrainer.run
+    (numpy batches, uniform timesteps, noise and masks from a CUDA
+    generator), after 5 steps of warm-up: ms a step on the host clock, peak
+    memory allocated, K2 and K2-bwd launches (exactly 16 each a step); with
+    `profiled`, the device busy share of 10 more steps under torch.profiler;
+    `mesh`: DDP."""
     from surfd_tpu_torch.diffusion import named_schedule
     from surfd_tpu_torch.training import (
         DiffusionTrainConfig,
@@ -2013,14 +2209,14 @@ def time_train_steps(mdm, dev, cond: str, L: int, steps: int, label: str,
 
     def batches():
         while True:
-            b = {"latents": (0.5 * rng.normal(size=(2, L))).astype(np.float32)}
+            b = {"latents": (0.5 * rng.normal(size=(B, L))).astype(np.float32)}
             if cond == "category":
-                b["action"] = rng.integers(0, 9, size=2).astype(np.int32)
+                b["action"] = rng.integers(0, 9, size=B).astype(np.int32)
             else:
-                b["context"] = rng.normal(size=(2, 512)).astype(np.float32)
+                b["context"] = rng.normal(size=(B, 512)).astype(np.float32)
             yield b
 
-    cfg = DiffusionTrainConfig(cond_mask_prob=TRAIN_COND_P, log_interval=10**9,
+    cfg = DiffusionTrainConfig(batch_size=B, cond_mask_prob=TRAIN_COND_P, log_interval=10**9,
                                save_interval=10**9, stall_exit_s=0)
     state = create_train_state(mdm, make_optimizer(mdm.parameters(), 1e-4))
     trainer = DiffusionTrainer(cfg, mdm, named_schedule("cosine", 1000), state, batches(),
@@ -2050,6 +2246,105 @@ def time_train_steps(mdm, dev, cond: str, L: int, steps: int, label: str,
     return {"ms_per_step": ms, "peak_bytes": peak, "k2": k2, "k2_bwd": bwd, "busy_share": busy}
 
 
+@contextlib.contextmanager
+def planted_remat_fault(name: str):
+    """One of REMAT_FAULTS in ResBlock1D's remat route for the block."""
+    from unittest import mock
+
+    from torch.utils.checkpoint import checkpoint
+
+    from surfd_tpu_torch.models.unet1d import ResBlock1D
+
+    def faulty(self, x, emb):
+        if not (self.use_remat and torch.is_grad_enabled()):
+            return self._forward(x, emb)
+        if name == "mask redrawn in the recomputation":  # the mask drawn inside
+            return checkpoint(self._forward, x, emb, use_reentrant=False)
+        if name == "checkpoint input detached":
+            keep = self.out_layers[2].draw(
+                x.new_empty((x.shape[0], self.out_channels) + tuple(x.shape[2:])))
+            return checkpoint(self._forward, x.detach(), emb, keep, use_reentrant=False)
+        raise ValueError(name)
+
+    with mock.patch.object(ResBlock1D, "forward", faulty):
+        yield
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms for the block."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def remat_run(dev, init: dict, remat: bool) -> dict:
+    """train_run with res-block dropout REMAT_DROPOUT drawn from a CUDA
+    generator of seed 12, remat on or off: also the K2 and K2-bwd launches
+    and the generator's state after the steps."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    k0 = _k2_counts()
+    out = train_run(dev, init, generator=g, dropout=REMAT_DROPOUT, use_remat=remat)
+    out["k2"] = tuple(b - a for a, b in zip(k0, _k2_counts()))
+    out["rng"] = g.get_state()
+    return out
+
+
+def remat_checks(dev, init: dict) -> dict:
+    """use_remat on the card: 3 steps with dropout against the same steps
+    without remat (TRAIN_BARS; cuDNN deterministic), equal launches and
+    generator state; each of REMAT_FAULTS fails its bar. Logged first, not
+    held: two plain runs and a remat run with cuDNN's default algorithms,
+    the spread that the deterministic ones remove."""
+    a, b, r = (remat_run(dev, init, remat) for remat in (False, False, True))
+    spread = {"plain vs plain": train_gaps(b, a), "remat vs plain": train_gaps(r, a)}
+    log("[train] cuDNN's default algorithms, dropout 0.1: "
+        + "; ".join(f"{k} {json.dumps(v)}" for k, v in spread.items()))
+    with cudnn_deterministic():
+        plain = remat_run(dev, init, False)
+        got = remat_run(dev, init, True)
+        gaps = train_gaps(got, plain)
+        same_rng = torch.equal(got["rng"], plain["rng"])
+        bit_equal = all(torch.equal(got[k][n], plain[k][n]) for k in ("grads", "params", "ema")
+                        for n in plain[k])
+        log(f"[train] remat vs plain, 3 steps of the full-width category MDM, dropout "
+            f"{REMAT_DROPOUT}, cuDNN deterministic: gaps {json.dumps(gaps)}; bit-equal "
+            f"{bit_equal}; K2 / K2-bwd {got['k2']} vs {plain['k2']}; generator state "
+            f"{'equal' if same_rng else 'differs'}")
+        if not within_train_bars(gaps) or got["k2"] != plain["k2"] or not same_rng:
+            raise RuntimeError("train: remat is off the plain steps")
+        faults = {}
+        for name, key in REMAT_FAULTS.items():
+            with planted_remat_fault(name):
+                f = faults[name] = train_gaps(remat_run(dev, init, True), plain)
+            log(f"[train] planted remat fault, {name}: " + json.dumps(f))
+            if not f[key] > TRAIN_BARS[key]:
+                raise RuntimeError(f"train: bar {key} passes a planted remat fault: {name}")
+    return {"gaps": gaps, "bit_equal": bit_equal, "faults": faults, "default_cudnn": spread}
+
+
+def remat_timed(dev, init: dict) -> dict:
+    """ms a step and peak memory at REMAT_BATCHES, remat off and on in
+    turns (cuDNN's default algorithms)."""
+    from surfd_tpu_torch.models import MDM
+
+    timed = {}
+    for B in REMAT_BATCHES:
+        for remat in (False, True):
+            mdm = MDM(cond_mode="category", num_actions=9, dropout=REMAT_DROPOUT,
+                      use_remat=remat)
+            mdm.load_state_dict(init)
+            timed[f"B{B}_{'remat' if remat else 'plain'}"] = time_train_steps(
+                mdm.to(dev), dev, "category", 32, REMAT_TIMED,
+                f"category MDM, latent 32, B {B}, dropout {REMAT_DROPOUT}, remat "
+                + ("on" if remat else "off"), B=B)
+            del mdm
+    return timed
+
+
 def write_class_list(path: str) -> None:
     """The nine garment classes, one line each, naming phase recon's items."""
     from surfd_tpu_torch.cli.generate_cat import GARMENT_CLASSES
@@ -2059,42 +2354,109 @@ def write_class_list(path: str) -> None:
         f.writelines(f"{c} {items[c]}\n" if c in items else f"{c}\n" for c in GARMENT_CLASSES)
 
 
+TRAIN_CLI_STEPS = (10, 20)  # train_diffusion's first run, then --resume to the second
+
+
+def train_cli_chain(tmp: str) -> dict:
+    """(c) of phase train in subprocesses, on the corpus in `tmp`:
+    train_diffusion for TRAIN_CLI_STEPS[0] steps, --resume to [1], then
+    generate_cat reading the run."""
+    first, last = TRAIN_CLI_STEPS
+    save = os.path.join(tmp, "run")
+    argv = ["--data_root", os.path.join(tmp, "data", "test"), "--ae_dir",
+            os.path.join(tmp, "ae"), "--save_dir", save, "--cond_mode", "category",
+            "--category_list", os.path.join(tmp, "classes.txt"), "--precompute_latents",
+            "--cond_mask_prob", str(TRAIN_COND_P), "--save_interval", "10",
+            "--log_interval", "10"]
+    walls = []
+    for extra in (["--num_steps", str(first)], ["--num_steps", str(last), "--resume"]):
+        dt, lines, launches = run_cli("train_diffusion", argv + extra, "train")
+        walls.append(dt)
+        steps = int(extra[1]) - (first if "--resume" in extra else 0)
+        k2 = sum(n for k, n in launches.items() if k.startswith("qkv_attention_T"))
+        bwd = sum(n for k, n in launches.items() if k.startswith("qkv_attention_bwd"))
+        if (k2, bwd) != (16 * steps, 16 * steps):
+            raise RuntimeError(f"train_diffusion: K2 {k2}, K2-bwd {bwd} in {steps} steps")
+        if "--resume" in extra and not any(f"resumed at step {first}" in x for x in lines):
+            raise RuntimeError(f"train_diffusion --resume did not resume at step {first}")
+    ckpts = sorted(os.listdir(os.path.join(save, "ckpt")))
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        rows = [json.loads(x) for x in f]
+    saved = list(range(10, last + 1, 10))
+    if ckpts != [f"step_{s:09d}.pt" for s in saved] or [r["step"] for r in rows] != saved or (
+            not all(np.isfinite(r["loss"]) for r in rows)):
+        raise RuntimeError(f"train_diffusion wrote {ckpts}, metrics {rows}")
+    gen = os.path.join(tmp, "gen")
+    dt, lines, _ = run_cli("generate_cat", [
+        "--model_path", save, "--ae_dir", os.path.join(tmp, "planted"), "--category",
+        "dress", "--category_list", os.path.join(tmp, "classes.txt"), "--sampler", "ddim",
+        "--timestep_respacing", "ddim50", "--resolution", "128", "--num_samples", "1",
+        "--output_dir", gen], "train")
+    walls.append(dt)
+    if not any(f"denoiser: step {last} of {os.path.join(save, 'ckpt')}" in x for x in lines):
+        raise RuntimeError("generate_cat did not read the trained run")
+    obj = os.path.join(gen, "cat0_0.obj")
+    if not os.path.getsize(obj):
+        raise RuntimeError("generate_cat wrote an empty OBJ")
+    log(f"[train] train_diffusion {first} steps {walls[0]:.1f}s, --resume to {last} "
+        f"{walls[1]:.1f}s, generate_cat from the run {walls[2]:.1f}s ({os.path.getsize(obj)} "
+        f"bytes of OBJ); losses at {saved}: {[r['loss'] for r in rows]}")
+    return {"cli_s": walls, "metrics": rows, "obj_bytes": os.path.getsize(obj)}
+
+
 def phase_train(dev, ref):
     """Diffusion training at the full-width category MDM, B 2, latent 32:
     (a) 3 steps on the card against the port's CPU run (`ref`:
     train_reference()) from the same init, batches, t, weights, noise and
     masks, EMA on; each of TRAIN_FAULTS (the attention output detached, K2
     without its gradient as before K2-bwd; TF32 on; the optimizer step
-    skipped; the EMA not updated) must fail its bar; (b) 50 steps timed, and 20 of the latent-64 MDM; (c) train_diffusion
-    --cond_mode category --precompute_latents in a subprocess for 20 steps,
-    then --resume to 30, then generate_cat --model_path <save_dir> at 128^3
-    reading the run."""
+    skipped; the EMA not updated) must fail its bar; (a') use_remat with
+    dropout 0.1 against the same steps without it (`remat_checks`); (c)
+    `train_cli_chain` in subprocesses, which runs while (a) and (a')'s
+    checks do; then, alone on the card, (a')'s timings and (b) 20 steps
+    timed, and 20 of the latent-64 MDM."""
     from surfd_tpu_torch.models import MDM
 
     out = {"cpu_reference_s": ref["s"]}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = train_run(dev, ref["init"])
-    torch.cuda.synchronize()
-    out["card_s"] = time.perf_counter() - t0
-    gaps = out["sound"] = train_gaps(got, ref)
-    log(f"[train] card vs CPU, 3 steps of the full-width category MDM ({out['card_s']:.2f}s, "
-        f"CPU {ref['s']:.2f}s): losses {got['loss']} vs {ref['loss']}; gaps "
-        + json.dumps(gaps) + f" (bars {json.dumps(TRAIN_BARS)})")
-    if not within_train_bars(gaps) or gaps["attention_grads_zero"]:
-        raise RuntimeError("train: the card's train step is off the CPU run's bars")
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as ex:
+        t0 = time.perf_counter()
+        write_recon_corpus(tmp, dev)
+        write_class_list(os.path.join(tmp, "classes.txt"))
+        write_planted_decoder(os.path.join(tmp, "planted"), latent_size=32)
+        out["corpus_s"] = time.perf_counter() - t0
+        chain = ex.submit(train_cli_chain, tmp)
 
-    faults = {}
-    for name, key in TRAIN_FAULTS.items():
-        with planted_train_fault(name):
-            f = faults[name] = train_gaps(train_run(dev, ref["init"]), ref)
-        log(f"[train] planted fault, {name}: " + json.dumps(f))
-        if not f[key] > TRAIN_BARS[key]:
-            raise RuntimeError(f"train: bar {key} passes a planted fault: {name}")
-    out["faults"] = faults
-    log(f"[train] (a) with the faults: {time.perf_counter() - t0:.1f}s")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = train_run(dev, ref["init"])
+        torch.cuda.synchronize()
+        out["card_s"] = time.perf_counter() - t0
+        gaps = out["sound"] = train_gaps(got, ref)
+        log(f"[train] card vs CPU, 3 steps of the full-width category MDM ({out['card_s']:.2f}s, "
+            f"CPU {ref['s']:.2f}s): losses {got['loss']} vs {ref['loss']}; gaps "
+            + json.dumps(gaps) + f" (bars {json.dumps(TRAIN_BARS)})")
+        if not within_train_bars(gaps) or gaps["attention_grads_zero"]:
+            raise RuntimeError("train: the card's train step is off the CPU run's bars")
+
+        faults = {}
+        for name, key in TRAIN_FAULTS.items():
+            with planted_train_fault(name):
+                f = faults[name] = train_gaps(train_run(dev, ref["init"]), ref)
+            log(f"[train] planted fault, {name}: " + json.dumps(f))
+            if not f[key] > TRAIN_BARS[key]:
+                raise RuntimeError(f"train: bar {key} passes a planted fault: {name}")
+        out["faults"] = faults
+        log(f"[train] (a) with the faults: {time.perf_counter() - t0:.1f}s")
+
+        t0 = time.perf_counter()
+        out["remat"] = remat_checks(dev, ref["init"])
+        log(f"[train] (a') remat checks: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        out.update(chain.result())
+        log(f"[train] (c) waited {time.perf_counter() - t0:.1f}s more for the CLIs")
 
     t0 = time.perf_counter()
+    out["remat"]["timed"] = remat_timed(dev, ref["init"])
     mdm = MDM(cond_mode="category", num_actions=9)
     mdm.load_state_dict(ref["init"])
     out["timed"] = time_train_steps(mdm.to(dev), dev, "category", 32, TRAIN_TIMED,
@@ -2104,54 +2466,7 @@ def phase_train(dev, ref):
     out["timed_64"] = time_train_steps(mdm.to(dev), dev, "sketch", 64, TRAIN_TIMED_64,
                                        "sketch MDM, latent 64, B 2")
     del mdm
-    log(f"[train] (b): {time.perf_counter() - t0:.1f}s")
-
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        write_recon_corpus(tmp, dev)
-        write_class_list(os.path.join(tmp, "classes.txt"))
-        write_planted_decoder(os.path.join(tmp, "planted"), latent_size=32)
-        save = os.path.join(tmp, "run")
-        argv = ["--data_root", os.path.join(tmp, "data", "test"), "--ae_dir",
-                os.path.join(tmp, "ae"), "--save_dir", save, "--cond_mode", "category",
-                "--category_list", os.path.join(tmp, "classes.txt"), "--precompute_latents",
-                "--cond_mask_prob", str(TRAIN_COND_P), "--save_interval", "10",
-                "--log_interval", "10"]
-        out["corpus_s"] = time.perf_counter() - t0
-        walls = []
-        for extra in (["--num_steps", "20"], ["--num_steps", "30", "--resume"]):
-            dt, lines, launches = run_cli("train_diffusion", argv + extra, "train")
-            walls.append(dt)
-            steps = int(extra[1]) - (20 if "--resume" in extra else 0)
-            k2 = sum(n for k, n in launches.items() if k.startswith("qkv_attention_T"))
-            bwd = sum(n for k, n in launches.items() if k.startswith("qkv_attention_bwd"))
-            if (k2, bwd) != (16 * steps, 16 * steps):
-                raise RuntimeError(f"train_diffusion: K2 {k2}, K2-bwd {bwd} in {steps} steps")
-            if "--resume" in extra and not any("resumed at step 20" in x for x in lines):
-                raise RuntimeError("train_diffusion --resume did not resume at step 20")
-        ckpts = sorted(os.listdir(os.path.join(save, "ckpt")))
-        with open(os.path.join(save, "metrics.jsonl")) as f:
-            rows = [json.loads(x) for x in f]
-        if ckpts != [f"step_{s:09d}.pt" for s in (10, 20, 30)] or [r["step"] for r in rows] != [
-                10, 20, 30] or not all(np.isfinite(r["loss"]) for r in rows):
-            raise RuntimeError(f"train_diffusion wrote {ckpts}, metrics {rows}")
-        gen = os.path.join(tmp, "gen")
-        dt, lines, _ = run_cli("generate_cat", [
-            "--model_path", save, "--ae_dir", os.path.join(tmp, "planted"), "--category",
-            "dress", "--category_list", os.path.join(tmp, "classes.txt"), "--sampler", "ddim",
-            "--timestep_respacing", "ddim50", "--resolution", "128", "--num_samples", "1",
-            "--output_dir", gen], "train")
-        walls.append(dt)
-        if not any(f"denoiser: step 30 of {os.path.join(save, 'ckpt')}" in x for x in lines):
-            raise RuntimeError("generate_cat did not read the trained run")
-        obj = os.path.join(gen, "cat0_0.obj")
-        if not os.path.getsize(obj):
-            raise RuntimeError("generate_cat wrote an empty OBJ")
-        out.update(cli_s=walls, metrics=rows, obj_bytes=os.path.getsize(obj))
-        log(f"[train] corpus {out['corpus_s']:.1f}s; train_diffusion 20 steps {walls[0]:.1f}s, "
-            f"--resume to 30 {walls[1]:.1f}s, generate_cat from the run {walls[2]:.1f}s "
-            f"({out['obj_bytes']} bytes of OBJ); losses at 10 / 20 / 30: "
-            f"{[r['loss'] for r in rows]}")
+    log(f"[train] (a') timings and (b): {time.perf_counter() - t0:.1f}s")
     return out
 
 
@@ -2547,10 +2862,10 @@ def phase_ae(dev, ref):
         write_ae_meshes(meshes, dev)
         out["meshes_s"] = time.perf_counter() - t0
         walls = {}
-        for split in ("train", "test"):
-            walls[f"preprocess_{split}"], _, _ = run_cli("preprocess_udfs", [
+        for split, (dt, _, _) in zip(("train", "test"), run_clis([("preprocess_udfs", [
                 "--mesh_root", os.path.join(meshes, split), "--out_root", data,
-                "--split", split], "ae")
+                "--split", split], "ae") for split in ("train", "test")])):
+            walls[f"preprocess_{split}"] = dt  # both at once
         argv = ["--config", "deepfashion3d", "--data_root", data, "--save_dir", run,
                 "--curriculum", "--curriculum_init", "8", "--curriculum_add", "1",
                 "--val_every", "2", "--log_interval", "1"]
@@ -2608,7 +2923,7 @@ def phase_ae(dev, ref):
 # Data parallel and the last model modules (phase parallel): one process and
 # one card, so the process group has world 1 (NCCL); worlds of 2 run on the
 # CPU over gloo (tests/test_torch_parallel*.py).
-PARALLEL_TIMED = 30  # DDP and plain train steps timed, in turns
+PARALLEL_TIMED = 15  # DDP and plain train steps timed, in turns
 PARALLEL_R = 256  # the sharded sheet extraction
 GUIDE_STEPS = "50"  # classifier guidance: cosine 1000 respaced to 50 DDPM steps
 GUIDE_CLASSES = (2, 7)
@@ -2736,11 +3051,11 @@ def run_torchrun(module: str, argv: list, label: str):
     if len(calls) != 1:
         raise RuntimeError(f"torchrun {module}: {len(calls)} kernel-calls lines")
     calls = json.loads(calls[0].removeprefix(KERNEL_CALLS))
-    for line in lines[-4:]:
-        log(f"[{label}]   " + line)
+    log("\n".join(f"[{label}]   " + line for line in lines[-4:]))
     if calls["plain_calls"]:
         raise RuntimeError(f"{module}: {calls['plain_calls']} plain-version calls")
-    CHILD_LAUNCHES.update(calls["launches"])
+    with _CHILD_LOCK:
+        CHILD_LAUNCHES.update(calls["launches"])
     return dt, lines, calls["launches"]
 
 
@@ -2857,29 +3172,31 @@ def phase_parallel(dev, ref):
         write_recon_corpus(tmp, dev)
         write_class_list(os.path.join(tmp, "classes.txt"))
         write_planted_decoder(os.path.join(tmp, "planted"), latent_size=32)
-        save = os.path.join(tmp, "run")
-        dt, lines, launches = run_torchrun("train_diffusion", [
-            "--data_root", os.path.join(tmp, "data", "test"), "--ae_dir", os.path.join(tmp, "ae"),
-            "--save_dir", save, "--cond_mode", "category", "--category_list",
-            os.path.join(tmp, "classes.txt"), "--precompute_latents", "--num_steps", "10",
-            "--save_interval", "10", "--log_interval", "5"], "parallel")
+        save, gen = os.path.join(tmp, "run"), os.path.join(tmp, "gen")
+        # the two torchruns at once (each its own free rendezvous port): their start-ups overlap
+        with ThreadPoolExecutor(2) as ex:
+            train = ex.submit(run_torchrun, "train_diffusion", [
+                "--data_root", os.path.join(tmp, "data", "test"), "--ae_dir",
+                os.path.join(tmp, "ae"), "--save_dir", save, "--cond_mode", "category",
+                "--category_list", os.path.join(tmp, "classes.txt"), "--precompute_latents",
+                "--num_steps", "10", "--save_interval", "10", "--log_interval", "5"], "parallel")
+            sample = ex.submit(run_torchrun, "generate_uncond", [
+                "--random-init", "--ae_dir", os.path.join(tmp, "planted"), "--data_parallel",
+                "--sampler", "ddim", "--timestep_respacing", "ddim50", "--num_samples", "1",
+                "--resolution", "128", "--output_dir", gen], "parallel")
+            (dt, lines, launches), (dt2, lines2, _) = train.result(), sample.result()
         k2 = sum(n for k, n in launches.items() if k.startswith("qkv_attention_T"))
         bwd = sum(n for k, n in launches.items() if k.startswith("qkv_attention_bwd"))
         ckpts = sorted(os.listdir(os.path.join(save, "ckpt")))
         if (k2, bwd) != (160, 160) or ckpts != ["step_000000010.pt"]:
             raise RuntimeError(f"torchrun train_diffusion: K2 {k2}, K2-bwd {bwd}, wrote {ckpts}")
-        gen = os.path.join(tmp, "gen")
-        dt2, lines2, _ = run_torchrun("generate_uncond", [
-            "--random-init", "--ae_dir", os.path.join(tmp, "planted"), "--data_parallel",
-            "--sampler", "ddim", "--timestep_respacing", "ddim50", "--num_samples", "1",
-            "--resolution", "128", "--output_dir", gen], "parallel")
         written = sorted(os.listdir(gen))
         if written != ["uncond_0.obj"] or not any("--data_parallel: one process" in x
                                                   for x in lines2):
             raise RuntimeError(f"torchrun generate_uncond --data_parallel wrote {written}")
         out["torchrun_s"] = (dt, dt2)
         log(f"[parallel] (d) torchrun train_diffusion 10 steps {dt:.1f}s (K2 {k2}, K2-bwd "
-            f"{bwd}, {ckpts}); generate_uncond --data_parallel {dt2:.1f}s "
+            f"{bwd}, {ckpts}); generate_uncond --data_parallel {dt2:.1f}s, both at once "
             f"({os.path.getsize(os.path.join(gen, written[0]))} bytes of OBJ); phase recon's "
             f"corpus and both runs {time.perf_counter() - t0:.1f}s")
 
@@ -2989,15 +3306,18 @@ CLI_RUNS = (  # (module, arguments, the OBJs it must write)
 
 
 def phase_cli():
-    for module, extra, objs in CLI_RUNS:
-        with tempfile.TemporaryDirectory() as out:
-            argv = ["--random-init", "--resolution", "128", "--output_dir", out] + extra
-            dt, _, _ = run_cli(module, argv, "cli")
+    """The CLI_RUNS, all at once (run_clis)."""
+    with contextlib.ExitStack() as stack:
+        outs = [stack.enter_context(tempfile.TemporaryDirectory()) for _ in CLI_RUNS]
+        results = run_clis([(module, ["--random-init", "--resolution", "128", "--output_dir",
+                                      out] + extra, "cli")
+                            for (module, extra, _), out in zip(CLI_RUNS, outs)])
+        for (module, extra, objs), out, (dt, _, _) in zip(CLI_RUNS, outs, results):
             written = sorted(os.listdir(out))
             if written != objs:
                 raise RuntimeError(f"{module} wrote {written}, want {objs}")
             sizes = [os.path.getsize(os.path.join(out, f)) for f in objs]
-            log(f"[cli] {module} {' '.join(extra)}: {dt:.1f}s, "
+            log(f"[cli] {module} {' '.join(extra)}: {dt:.1f}s (the three at once), "
                 + ", ".join(f"{f} {n} bytes" for f, n in zip(objs, sizes)))
 
 
@@ -3021,11 +3341,27 @@ def main() -> int:
     if "build" in phases:
         hgmma = phase_build()
     if "kernels" in phases:
+        t0 = time.perf_counter()
         rows, k2_calls = phase_kernels(dev, hgmma)
+        log(f"[kernels] phase in {time.perf_counter() - t0:.1f}s")
+    # CLIs that need no phase's state run while the CPU references do (the card
+    # is idle then); they are joined before the main path, which runs alone
+    early = ThreadPoolExecutor(3)
+    pending = {}
+    if "recon" in phases:
+        pending["recon"] = early.submit(recon_cli_chain, dev)
+    if "condition" in phases:
+        pending["condition"] = early.submit(condition_cli_chain)
+    if "cli" in phases:
+        pending["cli"] = early.submit(phase_cli)
+    t_refs = time.perf_counter()
     if "generate" in phases:  # the CPU reference, outside the counted paths
         cpu = torch.device("cpu")
         cfg_ref, t_ref = cfg_sample(category_mdm(), "ddim", cpu, action=category_actions(cpu))
-        log(f"[generate] CPU reference DDIM run ({torch.get_num_threads()} threads): {t_ref:.2f}s")
+        cfg_ref16, t16 = cfg_sample(category_mdm(torch.bfloat16), "ddim", cpu,
+                                    action=category_actions(cpu))
+        log(f"[generate] CPU reference DDIM runs ({torch.get_num_threads()} threads): f32 "
+            f"{t_ref:.2f}s, bf16 input {t16:.2f}s")
     if "recon" in phases:  # the CPU reference of the encoder, outside the counted paths
         enc_ref = encoder_reference()
         log(f"[recon] CPU reference encoder run, B 1 x {RECON_POINTS} points "
@@ -3044,11 +3380,16 @@ def main() -> int:
     if "parallel" in phases:  # the CPU reference of guided sampling and the last modules
         par_ref = parallel_reference()
         log(f"[parallel] CPU reference ({torch.get_num_threads()} threads): {par_ref['s']:.2f}s")
+    log(f"[main path] CPU references in {time.perf_counter() - t_refs:.1f}s")
+    t0 = time.perf_counter()
+    chains = {k: f.result() for k, f in pending.items()}
+    early.shutdown()
+    log(f"[main path] waited {time.perf_counter() - t0:.1f}s more for the CLIs run beside them")
     paths = {"sample": lambda: phase_sample(dev), "extract": lambda: phase_extract(dev),
              "settings": lambda: phase_settings(dev),
-             "generate": lambda: phase_generate(dev, cfg_ref),
-             "recon": lambda: phase_recon(dev, enc_ref),
-             "condition": lambda: phase_condition(dev, cond_ref),
+             "generate": lambda: phase_generate(dev, cfg_ref, cfg_ref16),
+             "recon": lambda: phase_recon(dev, enc_ref, chains["recon"]),
+             "condition": lambda: phase_condition(dev, cond_ref, chains["condition"]),
              "train": lambda: phase_train(dev, train_ref), "ae": lambda: phase_ae(dev, ae_ref),
              "parallel": lambda: phase_parallel(dev, par_ref)}
     by_path = {}
@@ -3071,7 +3412,9 @@ def main() -> int:
         if unused:
             raise RuntimeError(f"kernels not launched on the main path: {unused}")
     log(f"[main path] launches by phase: {json.dumps(by_path)}")
+    t0 = time.perf_counter()
     k2_device_times(rows, k2_calls)
+    log(f"[kernels] device-only times in {time.perf_counter() - t0:.1f}s")
     if "profile" in phases:
         phase_profile(dev)
     if "host" in phases:
@@ -3080,8 +3423,6 @@ def main() -> int:
         phase_bars(dev)
     if "parity" in phases:
         phase_parity(dev)
-    if "cli" in phases:
-        phase_cli()
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)

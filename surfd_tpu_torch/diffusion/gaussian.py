@@ -81,6 +81,14 @@ def _at(arr: torch.Tensor, t, ndim: int) -> torch.Tensor:
 # q(x_t | ...) and the model-output conversions
 # ---------------------------------------------------------------------------
 
+def q_mean_variance(sched: Schedule, x_start, t):
+    """q(x_t | x_0): (mean, variance, log_variance)."""
+    c, nd = sched.on(x_start.device), x_start.dim()
+    return (_at(c["sqrt_alphas_cumprod"], t, nd) * x_start,
+            _at(1.0 - c["alphas_cumprod"], t, nd),
+            _at(c["log_one_minus_alphas_cumprod"], t, nd))
+
+
 def q_sample(sched: Schedule, x_start, t, noise):
     """Sample x_t ~ q(x_t | x_0)."""
     c, nd = sched.on(x_start.device), x_start.dim()

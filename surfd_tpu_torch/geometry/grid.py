@@ -112,20 +112,58 @@ def _chunked(fn, x: torch.Tensor, chunk: int, mesh=None) -> torch.Tensor:
     return all_gather_rows(mesh, out)
 
 
-def eval_in_chunks(fn, pts, chunk: int, device=None, mesh=None) -> np.ndarray:
-    """fn over (P, ...) points in slices of `chunk`, returned as numpy.
+def to_device(a, dev) -> torch.Tensor:
+    """A host array on `dev`. On CUDA it is staged into pinned memory and
+    uploaded with non_blocking: a copy from pageable memory would wait for
+    every kernel queued on the stream before it. The caching host allocator
+    keeps the staging buffer until the copy is done."""
+    host = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(dev).type != "cuda":
+        return host.to(dev)
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
+def eval_in_chunks_async(fn, pts, chunk: int, device=None, mesh=None):
+    """Start fn over (P, ...) points in slices of `chunk`; return a
+    finalize() that blocks until the result is on the host, as numpy.
 
     pts: a tensor, used where it lies, or a host array, moved to `device`,
     else to fn's own `device` attribute, else to CUDA (never silently the
-    CPU). The JAX package pads the slices to a power-of-two count, which
-    bounds its compiled executables; eager PyTorch compiles nothing, so the
-    last slice here is simply shorter. mesh: the slices are split over its
-    'data' ranks and gathered (`_chunked`); the result is the unsharded one.
+    CPU). On CUDA the upload (`to_device`), the slices' kernels and the
+    download into a pinned host buffer are queued on the current stream
+    with an event behind them, and only finalize() waits, on that event: so
+    host work between the two overlaps the device's. Each call owns its
+    buffers and its event, so that calls from several threads on one stream
+    stay apart. On the CPU the result is computed at once. The JAX package
+    pads the slices to a power-of-two count, which bounds its compiled
+    executables; eager PyTorch compiles nothing, so the last slice here is
+    simply shorter. mesh: the slices are split over its 'data' ranks and
+    gathered (`_chunked`), which reads the row counts on the host, so the
+    dispatch blocks there; the result is the unsharded one.
     """
     if not torch.is_tensor(pts):
-        dev = resolve_device(device if device is not None else getattr(fn, "device", None))
-        pts = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
-    return _chunked(fn, pts, chunk, mesh).detach().cpu().numpy()
+        pts = to_device(pts, resolve_device(device if device is not None
+                                            else getattr(fn, "device", None)))
+    out = _chunked(fn, pts, chunk, mesh).detach()
+    if out.device.type != "cuda":
+        res = out.numpy()
+        return lambda: res
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def finalize() -> np.ndarray:
+        done.synchronize()
+        return host.numpy()
+
+    return finalize
+
+
+def eval_in_chunks(fn, pts, chunk: int, device=None, mesh=None) -> np.ndarray:
+    """fn over (P, ...) points in slices of `chunk`, returned as numpy:
+    `eval_in_chunks_async` waited on at once."""
+    return eval_in_chunks_async(fn, pts, chunk, device, mesh)()
 
 
 GRAD_CHUNK = 2**16  # points per backward pass: it keeps every activation

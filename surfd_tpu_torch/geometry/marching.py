@@ -101,7 +101,10 @@ def marching_tetrahedra_udf(
     array; a callable marked `by_gid = True` taking flat grid ids (K,)
     int64; or any other callable, taking grid-node points (K, 3) f32.
     Either callable returns (K, 3) and is asked only at the corners of the
-    active cubes.
+    active cubes. A by-gid callable with an `async_call` attribute (gids →
+    finalize(), `UdfEvaluator.grad_i8_gid_async`) is started before the
+    native corner-rank pass and fetched after it, so the device evaluates
+    while the host ranks.
     use_native: the native C++ passes (the default); False runs the numpy
     version of the same algorithm, the oracle the native passes are held to.
     active_blocks: optional (ab (M,3), B) from GridFiller.fill — every
@@ -156,10 +159,12 @@ def marching_tetrahedra_udf(
         times["mt_corners"] = len(near_gids)
     if len(cube_ids) == 0:
         return empty_mesh()
+    grad_async = getattr(gradients, "async_call", None) if callable(gradients) else None
+    pending = grad_async(near_gids) if grad_async is not None else None
     # pass 1 emitted the sorted distinct corners: ranks, not np.unique
     inv8 = native.mt_corner_ranks(near_gids, cube_ids, R)
     t0 = mark("mt_unique", t0)
-    g_near = grad_lookup(near_gids)
+    g_near = np.asarray(pending(), np.float32) if pending is not None else grad_lookup(near_gids)
     t0 = mark("mt_grads", t0)
     g8 = int8_units(g_near)[inv8]
     t0 = mark("mt_g8", t0)

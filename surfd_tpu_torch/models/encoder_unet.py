@@ -72,7 +72,8 @@ class _MeanPool(nn.Module):
 class EncoderUNet1D(nn.Module):
     """Half UNet (encoder + middle block) with a pooled head: `adaptive`,
     `attention` (needs num_head_channels > 0 and seq_len), `spatial` or
-    `spatial_v2`. (B, L, in_channels) → (B, out_channels) logits."""
+    `spatial_v2`. (B, L, in_channels) → (B, out_channels) logits.
+    `use_remat` and `dtype` as UNet1D's."""
 
     def __init__(
         self,
@@ -89,13 +90,15 @@ class EncoderUNet1D(nn.Module):
         use_scale_shift_norm: bool = False,
         pool: str = "adaptive",
         seq_len: Optional[int] = None,
+        use_remat: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if pool not in ("adaptive", "attention", "spatial", "spatial_v2"):
             raise NotImplementedError(f"unexpected pool {pool!r}")
         mc = model_channels
         ted = 4 * mc
-        self.model_channels, self.pool = mc, pool
+        self.model_channels, self.pool, self.dtype = mc, pool, dtype
 
         def heads_for(ch):
             # num_head_channels, when set, sizes the trunk's heads too
@@ -109,7 +112,8 @@ class EncoderUNet1D(nn.Module):
             [TimestepSequential(nn.Conv1d(in_channels, mc, 3, padding=1))])
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
-                layers = [ResBlock1D(ch, ted, mult * mc, dropout, use_scale_shift_norm)]
+                layers = [ResBlock1D(ch, ted, mult * mc, dropout, use_scale_shift_norm,
+                                     use_remat)]
                 ch = mult * mc
                 if ds in attention_resolutions:
                     layers.append(AttentionBlock1D(ch, heads_for(ch)))
@@ -120,9 +124,9 @@ class EncoderUNet1D(nn.Module):
                 feats.append(ch)
                 ds *= 2
         self.middle_block = TimestepSequential(
-            ResBlock1D(ch, ted, ch, dropout, use_scale_shift_norm),
+            ResBlock1D(ch, ted, ch, dropout, use_scale_shift_norm, use_remat),
             AttentionBlock1D(ch, heads_for(ch)),
-            ResBlock1D(ch, ted, ch, dropout, use_scale_shift_norm))
+            ResBlock1D(ch, ted, ch, dropout, use_scale_shift_norm, use_remat))
         feats.append(ch)
 
         if pool == "adaptive":
@@ -148,7 +152,7 @@ class EncoderUNet1D(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels))
-        h = x.permute(0, 2, 1)
+        h = x.permute(0, 2, 1).to(self.dtype).to(torch.float32)
         feats = []
         for block in self.input_blocks:
             h = block(h, emb)

@@ -18,7 +18,8 @@ CONTEXT_MODES = ("text", "sketch", "img")
 
 
 class MDM(nn.Module):
-    """Denoiser facade. Input and output latents are `(B, L, 1)` channel-last."""
+    """Denoiser facade. Input and output latents are `(B, L, 1)` channel-last.
+    `use_remat` and `dtype` are UNet1D's."""
 
     def __init__(
         self,
@@ -30,6 +31,8 @@ class MDM(nn.Module):
         channel_mult: tuple = (1, 2, 4, 4),
         num_heads: int = 8,
         dropout: float = 0.0,
+        use_remat: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if cond_mode not in COND_MODES:
@@ -45,6 +48,8 @@ class MDM(nn.Module):
             num_heads=num_heads,
             context_dim=clip_dim if cond_mode in CONTEXT_MODES else None,
             dropout=dropout,
+            use_remat=use_remat,
+            dtype=dtype,
         )
         self.dropout = float(dropout)  # res-block dropout, active in train() mode
         self.eval()

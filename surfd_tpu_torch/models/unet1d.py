@@ -5,7 +5,9 @@ downsample rates {1, 2, 4}, a context added to the time embedding. The JAX
 package's other settings are here too: `use_scale_shift_norm`,
 `conv_resample=False` (average pooling and a bare nearest upsample) and
 `use_spatial_transformer` (cross-attention over the context in
-`SpatialTransformer1D` blocks at the attention sites, in place of K2).
+`SpatialTransformer1D` blocks at the attention sites, in place of K2),
+`use_remat` (each residual block recomputed in the backward pass) and
+`dtype` (the input rounded to it; the network runs in float32).
 
 Internally channel-first `(B, C, L)`, PyTorch's and the upstream Conv1d
 layout. Module names follow upstream (`time_embed`, `input_blocks`,
@@ -21,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ..ops.attention_kernel import qkv_attention
 from .attention import SpatialTransformer1D
 from .layers import GroupNorm32, lecun_normal_, timestep_embedding
@@ -31,30 +35,44 @@ class SeededDropout(nn.Module):
     the input's device, set by the trainer; None draws from the global one).
     Active in train() mode, the identity in eval() mode or at p 0. Keeps
     with probability 1 − p and scales kept values by 1 / (1 − p), as Flax's
-    `nn.Dropout` does; the bits differ from JAX's."""
+    `nn.Dropout` does; the bits differ from JAX's. A caller may draw the
+    mask first (`draw`) and hand it to forward, as a recomputed block does."""
 
     def __init__(self, p: float = 0.0):
         super().__init__()
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def draw(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The keep mask forward draws for x, or None when it is inactive."""
         if not self.training or self.p == 0.0:
-            return x
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
-        return x * keep / (1.0 - self.p)
+            return None
+        return torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if keep is None:
+            keep = self.draw(x)
+        return x if keep is None else x * keep / (1.0 - self.p)
 
 
 class ResBlock1D(nn.Module):
     """Residual block with timestep-embedding injection; `dropout` sits
     between the second SiLU and the last convolution. The embedding is
     added before the second norm, or with `use_scale_shift_norm` it scales
-    and shifts that norm's output (h·(1 + scale) + shift)."""
+    and shifts that norm's output (h·(1 + scale) + shift).
+
+    use_remat: while grad is enabled, the block runs under
+    `torch.utils.checkpoint` and is recomputed in the backward pass (JAX's
+    `nn.remat`). Its dropout mask is drawn before the checkpoint and handed
+    in, so that the recomputation applies the same mask and draws nothing:
+    a checkpoint restores only the global generators, not the dropout's."""
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int, dropout: float = 0.0,
-                 use_scale_shift_norm: bool = False):
+                 use_scale_shift_norm: bool = False, use_remat: bool = False):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
+        self.use_remat = use_remat
+        self.out_channels = out_channels
         self.in_layers = nn.Sequential(
             GroupNorm32(channels), nn.SiLU(), nn.Conv1d(channels, out_channels, 3, padding=1)
         )
@@ -70,15 +88,26 @@ class ResBlock1D(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        if self.use_remat and torch.is_grad_enabled():
+            # the mask's shape is the second activation's, (B, out, L)
+            keep = self.out_layers[2].draw(
+                x.new_empty((x.shape[0], self.out_channels) + tuple(x.shape[2:])))
+            # nothing inside draws from a generator, so none is saved
+            return checkpoint(self._forward, x, emb, keep, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self._forward(x, emb)
+
+    def _forward(self, x: torch.Tensor, emb: torch.Tensor,
+                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.in_layers(x)
         e = self.emb_layers(emb)[:, :, None]
+        norm, act, drop, conv = self.out_layers
         if self.use_scale_shift_norm:
             scale, shift = e.chunk(2, dim=1)
-            h = self.out_layers[0](h) * (1 + scale) + shift
-            h = self.out_layers[1:](h)
+            h = norm(h) * (1 + scale) + shift
         else:
-            h = self.out_layers(h + e)
-        return self.skip_connection(x) + h
+            h = norm(h + e)
+        return self.skip_connection(x) + conv(drop(act(h), keep))
 
 
 class AttentionBlock1D(nn.Module):
@@ -147,6 +176,12 @@ class UNet1D(nn.Module):
     cross-attention context, (B, S, context_dim) or (B, context_dim) lifted
     to S = 1, of `transformer_depth`-deep SpatialTransformer1D blocks at the
     attention sites (there, `context_dim` is required).
+
+    use_remat: each ResBlock1D is recomputed in the backward pass (the
+    attention blocks are not). dtype: the input is rounded to it before the
+    first convolution, which takes it back to float32, the weights' type;
+    as in the JAX package, where flax promotes the rounded input to the f32
+    params, the rest of the network runs in float32.
     """
 
     def __init__(
@@ -165,11 +200,14 @@ class UNet1D(nn.Module):
         conv_resample: bool = True,
         use_spatial_transformer: bool = False,
         transformer_depth: int = 1,
+        use_remat: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         mc = model_channels
         ted = 4 * mc
         self.model_channels = mc
+        self.dtype = dtype
         self.num_classes = num_classes
         self.use_spatial_transformer = use_spatial_transformer
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
@@ -181,7 +219,7 @@ class UNet1D(nn.Module):
             self.sketch_emb = nn.Linear(context_dim, ted)
 
         def res(cin, cout):
-            return ResBlock1D(cin, ted, cout, dropout, use_scale_shift_norm)
+            return ResBlock1D(cin, ted, cout, dropout, use_scale_shift_norm, use_remat)
 
         def attn(c):
             if use_spatial_transformer:
@@ -235,7 +273,7 @@ class UNet1D(nn.Module):
                 ctx = context if context.dim() == 3 else context[:, None, :]
             else:
                 emb = emb + self.sketch_emb(context)
-        h = x
+        h = x.to(self.dtype).to(torch.float32)
         hs = []
         for block in self.input_blocks:
             h = block(h, emb, ctx)

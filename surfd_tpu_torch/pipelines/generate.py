@@ -34,6 +34,7 @@ from ..geometry import (
     GridFiller,
     Mesh,
     eval_in_chunks,
+    eval_in_chunks_async,
     filter_small_components,
     keep_largest_component,
     laplacian_smooth,
@@ -45,7 +46,7 @@ from ..geometry import (
     smooth_borders,
     stabilize,
 )
-from ..geometry.grid import GRAD_CHUNK, _chunked
+from ..geometry.grid import GRAD_CHUNK, _chunked, to_device
 from ..geometry.mesh_ops import _unique_i64
 from ..models.decoder import CbnDecoder, coords_encode, udf_from_logits
 from ..ops.decoder_kernel import fold_decoder, folded_udf
@@ -62,9 +63,7 @@ class BiasTable:
         self.scale = float(field.max()) / 255.0
         self.cell_inv = 1.0 / cell
         self.lo = lo
-        self.table = torch.from_numpy(
-            np.rint(field.reshape(-1) / self.scale).astype(np.uint8)
-        ).to(device)
+        self.table = to_device(np.rint(field.reshape(-1) / self.scale).astype(np.uint8), device)
 
     def at(self, pts: torch.Tensor) -> torch.Tensor:
         bi = ((pts - self.lo) * self.cell_inv).to(torch.int32).clamp(0, self.nb - 1)
@@ -110,13 +109,20 @@ class UdfEvaluator:
         """UDF quantised to max_dist/65535 steps (values 0..65535, int32)."""
         return torch.round(self(pts) * (65535.0 / self.max_dist)).to(torch.int32)
 
-    def _dequant(self, qpts: torch.Tensor, qlo: float, qstep: float) -> torch.Tensor:
-        return qpts.to(torch.float32) * torch.tensor(qstep, device=self.device) + torch.tensor(
-            qlo, device=self.device)
+    @staticmethod
+    def _dequant(qpts: torch.Tensor, qlo: float, qstep: float) -> torch.Tensor:
+        """u16 coordinates → f32 points q·qstep + qlo. qpts: int32 values
+        0..65535, or int16 holding the u16 bits (the 2-byte upload); the
+        constants are f32 CPU scalars, which a CUDA op takes as arguments
+        (a device copy of them would wait for the stream)."""
+        if qpts.dtype == torch.int16:
+            qpts = qpts.to(torch.int32) & 0xFFFF
+        return (qpts.to(torch.float32) * torch.tensor(qstep, dtype=torch.float32)
+                + torch.tensor(qlo, dtype=torch.float32))
 
-    def below_q16(self, qpts: torch.Tensor, thr: float, qlo: float, qstep: float,
-                  bias: BiasTable | None = None, mesh=None) -> torch.Tensor:
-        """udf(p) − bias(p) ≤ thr at u16-quantised points p = q·qstep + qlo."""
+    def below_q16_bound(self, thr: float, qlo: float, qstep: float,
+                        bias: BiasTable | None = None):
+        """The chunk function of `below_q16`: (P, 3) u16 points → (P,) bool."""
 
         def one(q):
             pts = self._dequant(q, qlo, qstep)
@@ -125,13 +131,12 @@ class UdfEvaluator:
                 u = u - bias.at(pts)
             return u <= torch.tensor(thr, dtype=torch.float32)
 
-        return self._chunks(one, qpts, mesh=mesh)
+        return one
 
-    def below2t_q16(self, qpts: torch.Tensor, thr: float, qlo: float, qstep: float,
-                    band: float, bias: BiasTable | None = None, mesh=None):
-        """Tier 1 of the two-tier filter: (below, sure) on the tier-1 UDF;
-        `sure` is False within `band` of the threshold, where the caller
-        re-checks with `below_q16`."""
+    def below2t_q16_bound(self, thr: float, qlo: float, qstep: float, band: float,
+                          bias: BiasTable | None = None):
+        """The chunk function of `below2t_q16`: (P, 3) u16 points → (P, 2)
+        bool, (below, sure) on the tier-1 UDF."""
 
         def one(q):
             pts = self._dequant(q, qlo, qstep)
@@ -142,7 +147,19 @@ class UdfEvaluator:
             return torch.stack([u <= t, (u - t).abs() > torch.tensor(band, dtype=torch.float32)],
                                dim=1)
 
-        out = self._chunks(one, qpts, mesh=mesh)
+        return one
+
+    def below_q16(self, qpts: torch.Tensor, thr: float, qlo: float, qstep: float,
+                  bias: BiasTable | None = None, mesh=None) -> torch.Tensor:
+        """udf(p) − bias(p) ≤ thr at u16-quantised points p = q·qstep + qlo."""
+        return self._chunks(self.below_q16_bound(thr, qlo, qstep, bias), qpts, mesh=mesh)
+
+    def below2t_q16(self, qpts: torch.Tensor, thr: float, qlo: float, qstep: float,
+                    band: float, bias: BiasTable | None = None, mesh=None):
+        """Tier 1 of the two-tier filter: (below, sure) on the tier-1 UDF;
+        `sure` is False within `band` of the threshold, where the caller
+        re-checks with `below_q16`."""
+        out = self._chunks(self.below2t_q16_bound(thr, qlo, qstep, band, bias), qpts, mesh=mesh)
         return out[:, 0], out[:, 1]
 
     def two_tier_band(self, mesh=None) -> float:
@@ -176,11 +193,12 @@ class UdfEvaluator:
         (`geometry.make_grad_fn` over this evaluator)."""
         return make_grad_fn(self, min(self.chunk, GRAD_CHUNK))(pts)
 
-    def grad_i8_gid(self, gids, R: int, lo: float, spacing: float, mesh=None) -> np.ndarray:
-        """int8 unit gradients at flat grid ids (host int64 in, host int8 out)."""
+    def grad_i8_gid_async(self, gids, R: int, lo: float, spacing: float, mesh=None):
+        """Start the int8 unit gradients at flat grid ids (host int64); the
+        returned finalize() gives them as host int8 (`eval_in_chunks_async`)."""
         RR = R * R
-        sp = torch.tensor(np.float32(spacing), device=self.device)
-        lo_t = torch.tensor(np.float32(lo), device=self.device)
+        sp = torch.tensor(np.float32(spacing))  # f32 CPU scalars: no device copy
+        lo_t = torch.tensor(np.float32(lo))
 
         def one(g):
             xyz = torch.stack([g // RR, (g % RR) // R, g % R], dim=-1).to(torch.float32)
@@ -188,8 +206,12 @@ class UdfEvaluator:
             n = d.norm(dim=-1, keepdim=True).clamp_min(1e-12)
             return torch.round(d / n * 127.0).to(torch.int8)
 
-        g = torch.as_tensor(np.ascontiguousarray(gids, np.int64), device=self.device)
-        return self._chunks(one, g, mesh=mesh).cpu().numpy()
+        return eval_in_chunks_async(one, np.asarray(gids, np.int64), self.chunk,
+                                    device=self.device, mesh=mesh)
+
+    def grad_i8_gid(self, gids, R: int, lo: float, spacing: float, mesh=None) -> np.ndarray:
+        """int8 unit gradients at flat grid ids (host int64 in, host int8 out)."""
+        return self.grad_i8_gid_async(gids, R, lo, spacing, mesh)()
 
 
 def make_udf_fn(decoder: CbnDecoder, state, latent, max_dist: float = 0.1, device=None,
@@ -346,6 +368,9 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
     if grad_fn is None and gid_grad is not None:
         grad_at = lambda gids: gid_grad(gids, R, lo_, voxel, mesh=cfg.mesh)
         grad_at.by_gid = True
+        # marching starts it before its host corner-rank pass, so the two overlap
+        grad_at.async_call = lambda gids: udf_fn.grad_i8_gid_async(gids, R, lo_, voxel,
+                                                                   mesh=cfg.mesh)
     elif getattr(grad_fn, "by_gid", False):
         grad_at = grad_fn
     else:
@@ -391,23 +416,37 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
             stats.update(ff_band=band, ff_threshold=threshold, ff_two_tier=two_tier)
             qverts = np.clip(np.rint((mesh.vertices - lo_) * (1.0 / qstep)), 0,
                              65535).astype(np.uint16)
+            # overlap: the vertex query runs on the device while the host
+            # builds the edge structure, then the midpoint query; the u16
+            # points go up as 2 bytes each (int16 bits, widened on the device)
+            bound = (udf_fn.below2t_q16_bound(threshold, lo_, qstep, band, bias_tbl) if two_tier
+                     else udf_fn.below_q16_bound(threshold, lo_, qstep, bias_tbl))
+            query = lambda qp: eval_in_chunks_async(bound, qp.view(np.int16), udf_fn.chunk,
+                                                    device=dev, mesh=cfg.mesh)
+            verts_pending = query(qverts)
             qmids, einv, ea, eb = native.face_filter_prep_q16(mesh.vertices, mesh.faces, lo_,
                                                               1.0 / qstep)
             times["ff_prep"] = round(time.perf_counter() - t0, 3)
-            q = torch.from_numpy(np.concatenate([qverts, qmids]).astype(np.int32)).to(dev)
+            mids_pending = query(qmids)
+            t1 = time.perf_counter()
+            res = np.concatenate([verts_pending(), mids_pending()])
+            times["ff_fetch"] = round(time.perf_counter() - t1, 3)
             if two_tier:
-                t1 = time.perf_counter()
-                below, sure = udf_fn.below2t_q16(q, threshold, lo_, qstep, band, bias_tbl,
-                                                 mesh=cfg.mesh)
-                uns = torch.nonzero(~sure)[:, 0]
+                ok, sure = res[:, 0].copy(), res[:, 1]
+                uns = np.flatnonzero(~sure)
                 stats["ff_unsure"] = int(len(uns))
                 if len(uns):
-                    below[uns] = udf_fn.below_q16(q[uns], threshold, lo_, qstep, bias_tbl,
-                                                  mesh=cfg.mesh)
-                times["ff_t1_t2"] = round(time.perf_counter() - t1, 3)
+                    # tier 2 (f32, exact): only the band points re-query
+                    t1 = time.perf_counter()
+                    qall = np.concatenate([qverts, qmids])[uns]
+                    ok[uns] = eval_in_chunks(udf_fn.below_q16_bound(threshold, lo_, qstep,
+                                                                    bias_tbl),
+                                             qall.view(np.int16), udf_fn.chunk, device=dev,
+                                             mesh=cfg.mesh)
+                    times["ff_t2"] = round(time.perf_counter() - t1, 3)
             else:
-                below = udf_fn.below_q16(q, threshold, lo_, qstep, bias_tbl, mesh=cfg.mesh)
-            ok = below.to(torch.uint8).cpu().numpy()
+                ok = res
+            ok = ok.view(np.uint8)
             times["face_filter"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             v, f = native.finalize_mesh_pre(mesh.vertices, mesh.faces, ok, einv, ea, eb,

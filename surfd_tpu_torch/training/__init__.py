@@ -3,6 +3,7 @@ from .ae_trainer import (
     AutoEncoder,
     curriculum_validate,
     init_ae,
+    make_ae_apply_fns,
     make_ae_eval_step,
     make_ae_train_step,
 )
@@ -21,7 +22,8 @@ from .common import (
 from .diffusion_trainer import DiffusionTrainConfig, DiffusionTrainer, make_train_step
 
 __all__ = [
-    "AETrainConfig", "AutoEncoder", "curriculum_validate", "init_ae", "make_ae_eval_step",
+    "AETrainConfig", "AutoEncoder", "curriculum_validate", "init_ae", "make_ae_apply_fns",
+    "make_ae_eval_step",
     "make_ae_train_step",
     "GracefulShutdown", "StallWatchdog", "TrainState", "apply_update_if_finite",
     "create_train_state", "ema_update", "global_norm", "make_optimizer", "snapshot_buffers",

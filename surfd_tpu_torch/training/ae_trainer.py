@@ -69,6 +69,22 @@ class AutoEncoder(nn.Module):
 _TRUNC_STD = 0.87962566103423978
 
 
+def make_ae_apply_fns(ae: AutoEncoder):
+    """(encode(pcd, train=False) → (B, latent), decode(coords, latent,
+    train=False) → (B, Q) logits) over the AutoEncoder's modules: the JAX
+    package's pair, its variables being the modules' own. `train` switches
+    the module to train mode (BatchNorm over the batch, its running
+    statistics updated), else to eval mode."""
+
+    def encode(pcd: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return ae.encoder.train(train)(pcd)
+
+    def decode(coords: torch.Tensor, latent: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return ae.decoder.train(train)(coords_encode(coords), latent)
+
+    return encode, decode
+
+
 @torch.no_grad()
 def init_ae(cfg: AETrainConfig, generator: torch.Generator) -> AutoEncoder:
     """An AutoEncoder at cfg's widths, initialised as the JAX package's

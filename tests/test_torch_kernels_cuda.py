@@ -589,3 +589,43 @@ def test_classifier_guidance_gradient_runs_k2_bwd(cuda, monkeypatch):
         want = cond_fn(x, t)
     assert float(want.abs().max()) > 0
     assert float((got - want).abs().max()) <= K2_BWD_BAR * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_remat_step_on_card_matches_plain(cuda):
+    """One loss and backward of the full-width category MDM with res-block
+    dropout 0.1 from a seeded CUDA generator, use_remat on and off, with
+    cuDNN's deterministic algorithms (its default backward sums vary run to
+    run): the same output and every gradient bit for bit, K2 and K2-bwd
+    launched 16 times each either way (the attention blocks are not
+    recomputed), and the generator in the same state after."""
+    runs = {}
+    for remat in (False, True):
+        mdm = MDM(cond_mode="category", num_actions=9, dropout=0.1, use_remat=remat)
+        mdm.Unet.random_init_(torch.Generator().manual_seed(0))
+        mdm = mdm.to(cuda).train()
+        g = torch.Generator(device=cuda).manual_seed(12)
+        for m in mdm.modules():
+            if hasattr(m, "generator"):
+                m.generator = g
+        rng = np.random.default_rng(5)
+        x = torch.from_numpy(rng.normal(size=(2, 32, 1)).astype(np.float32)).to(cuda)
+        t, y = torch.tensor([3, 700], device=cuda), torch.tensor([1, 9], device=cuda)
+        ak.qkv_attention.launches.clear()
+        ak.qkv_attention_bwd.launches.clear()
+        was, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+        try:
+            out = mdm(x, t, action=y)
+            out.abs().mean().backward()
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = was
+        runs[remat] = (out.detach(), {n: p.grad.detach().cpu() for n, p in mdm.named_parameters()},
+                       sum(ak.qkv_attention.launches.values()),
+                       sum(ak.qkv_attention_bwd.launches.values()), g.get_state())
+    (o0, g0, k0, b0, s0), (o1, g1, k1, b1, s1) = runs[False], runs[True]
+    assert torch.equal(o0, o1)
+    assert (k0, b0) == (k1, b1) == (16, 16)
+    assert torch.equal(s0, s1)
+    for n, w in g0.items():
+        assert torch.equal(g1[n], w), n

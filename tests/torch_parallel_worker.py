@@ -45,6 +45,31 @@ def case_chunks(inp, rank, world, mesh):
     return {"norm": got}
 
 
+def case_async_chunks(inp, rank, world, mesh):
+    """eval_in_chunks_async split over the ranks equals the unsharded stream
+    bit for bit, on float, bool and int8 outputs; so do the evaluator's int8
+    unit gradients by grid id (`grad_i8_gid_async`, the marching query)."""
+    from surfd_tpu_torch.geometry.grid import eval_in_chunks, eval_in_chunks_async
+
+    fns = {"norm": lambda p: p.norm(dim=-1), "bool": lambda p: p[:, 0] > 0.1 * p[:, 1],
+           "int8": lambda p: torch.round(p * 100.0).to(torch.int8)}
+    out = {}
+    for chunk in (256, 300, 8192):
+        for name, fn in fns.items():
+            want = eval_in_chunks(fn, inp["pts"], chunk, device="cpu")
+            pending = eval_in_chunks_async(fn, inp["pts"], chunk, device="cpu", mesh=mesh)
+            got = pending()
+            assert got.dtype == want.dtype and np.array_equal(got, want), (name, chunk)
+            out[f"{name}_{chunk}"] = got
+    udf = _udf(inp, inp["latent"])
+    gids = inp["gids"]
+    want = udf.grad_i8_gid(gids, 48, -1.0, 2.0 / 47)
+    got = udf.grad_i8_gid_async(gids, 48, -1.0, 2.0 / 47, mesh=mesh)()
+    assert got.dtype == np.int8 and np.array_equal(got, want)
+    out["grad_i8"] = got
+    return out
+
+
 def _udf(inp, latent):
     from surfd_tpu_torch.models import CbnDecoder
     from surfd_tpu_torch.pipelines import make_udf_fn
