@@ -1,0 +1,8 @@
+"""Seconds per mesh of the program's `times["grid_fill"]` stage (a host-clock span
+of `get_mesh_from_udf` that ends in a host copy), over the window's meshes."""
+
+from benchmark.readers import mean_stage
+
+
+def read(run):
+    return mean_stage(run, "grid_fill")

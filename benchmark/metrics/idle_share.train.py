@@ -1,0 +1,5 @@
+"""Device (the diffusion train step): the share of the traced steps' wall in which no
+operation ran on the card (1 − union of kernel, copy and memset intervals /
+wall)."""
+
+from benchmark.readers import idle_share as read  # noqa: F401
