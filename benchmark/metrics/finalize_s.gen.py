@@ -1,0 +1,9 @@
+"""Seconds per mesh of the program's `times["cleanup_finalize"]`: the
+cleanup's native finalize (`cleanup.finalize`, a host-clock span of
+`get_mesh_from_udf`), over the window's meshes."""
+
+from benchmark.readers import mean_stage
+
+
+def read(run):
+    return mean_stage(run, "cleanup_finalize")

@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import span
 from .schedule import Schedule
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -307,8 +308,9 @@ def p_sample_loop(
     img, steps, step_z = _start(sched, shape, generator, device, noise, step_noise,
                                 skip_timesteps, init_image, draws_steps=True)
     for i, t in enumerate(steps):
-        img, _ = p_sample(sched, model_fn, img, t, step_z(i), cond_fn=cond_fn,
-                          const_noise=const_noise, **pmv_kwargs)
+        with span("sample.step"):
+            img, _ = p_sample(sched, model_fn, img, t, step_z(i), cond_fn=cond_fn,
+                              const_noise=const_noise, **pmv_kwargs)
     return img
 
 
@@ -332,8 +334,9 @@ def ddim_sample_loop(
     img, steps, step_z = _start(sched, shape, generator, device, noise, step_noise,
                                 skip_timesteps, init_image, draws_steps=True)
     for i, t in enumerate(steps):
-        img, _ = ddim_sample(sched, model_fn, img, t, step_z(i), eta=eta, cond_fn=cond_fn,
-                             **pmv_kwargs)
+        with span("sample.step"):
+            img, _ = ddim_sample(sched, model_fn, img, t, step_z(i), eta=eta, cond_fn=cond_fn,
+                                 **pmv_kwargs)
     return img
 
 
@@ -380,23 +383,24 @@ def plms_sample_loop(
 
     prev = []  # ε of the earlier steps, newest first, at most 3
     for t in steps:
-        alpha_bar_prev = c["alphas_cumprod_prev"][t]
-        eps, x0 = eps_and_x0(img, t)
-        if order > 1 and not prev:
-            mean_pred = x0 * torch.sqrt(alpha_bar_prev) + torch.sqrt(1 - alpha_bar_prev) * eps
-            eps2, _ = eps_and_x0(mean_pred, max(t - 1, 0))
-            eps_prime = (eps + eps2) / 2.0
-        else:
-            hist = [eps] + prev
-            coeffs = _AB_COEFFS[min(order, len(hist)) - 1]
-            eps_prime = sum(k * e for k, e in zip(coeffs, hist))
-        if t == 0:
-            img = x0
-        else:
-            pred_prime = predict_xstart_from_eps(sched, img, t, eps_prime)
-            img = (pred_prime * torch.sqrt(alpha_bar_prev)
-                   + torch.sqrt(1 - alpha_bar_prev) * eps_prime)
-        prev = [eps] + prev[:2]
+        with span("sample.step"):
+            alpha_bar_prev = c["alphas_cumprod_prev"][t]
+            eps, x0 = eps_and_x0(img, t)
+            if order > 1 and not prev:
+                mean_pred = x0 * torch.sqrt(alpha_bar_prev) + torch.sqrt(1 - alpha_bar_prev) * eps
+                eps2, _ = eps_and_x0(mean_pred, max(t - 1, 0))
+                eps_prime = (eps + eps2) / 2.0
+            else:
+                hist = [eps] + prev
+                coeffs = _AB_COEFFS[min(order, len(hist)) - 1]
+                eps_prime = sum(k * e for k, e in zip(coeffs, hist))
+            if t == 0:
+                img = x0
+            else:
+                pred_prime = predict_xstart_from_eps(sched, img, t, eps_prime)
+                img = (pred_prime * torch.sqrt(alpha_bar_prev)
+                       + torch.sqrt(1 - alpha_bar_prev) * eps_prime)
+            prev = [eps] + prev[:2]
     return img
 
 

@@ -15,12 +15,12 @@ the corners of the active cubes.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
 
 from .. import native
+from ..utils.profiling import span
 
 # Corner ids: bit 0 = dx, bit 1 = dy, bit 2 = dz. Each Kuhn tetrahedron is
 # a monotone path 0 → +axis → +axis → 7, so neighbouring cubes split each
@@ -94,6 +94,7 @@ def marching_tetrahedra_udf(
     use_native: bool = True,
     times: dict | None = None,
     active_blocks: tuple | None = None,
+    stats: dict | None = None,
 ) -> Mesh:
     """Extract an open surface from an (R,R,R) UDF grid.
 
@@ -110,6 +111,10 @@ def marching_tetrahedra_udf(
     active_blocks: optional (ab (M,3), B) from GridFiller.fill — every
     near-band node is inside a listed block, so native pass 1 scans only
     those blocks dilated by one in the negative direction.
+    times: the native passes' host seconds are added to it (`mt_pass1`,
+    `mt_unique`, `mt_grads`, `mt_g8`, `mt_pass2`; each a `marching.*` span);
+    stats: gets the counts of active cubes and their distinct corners
+    (`mt_cubes`, `mt_corners`).
     """
     R = udf.shape[0]
     if udf.shape != (R, R, R):
@@ -130,46 +135,41 @@ def marching_tetrahedra_udf(
     if not use_native:
         return _marching_udf_numpy(u, grad_lookup, R, lo, voxel, near_mult, avg_mult)
 
-    def mark(name, t0):
-        if times is not None:
-            times[name] = round(time.perf_counter() - t0, 3)
-        return time.perf_counter()
-
-    t0 = time.perf_counter()
-    if active_blocks is not None:
-        ab, B = active_blocks
-        # a cube anchored in block b has corners in blocks b..b+1 per axis
-        nb = R // B
-        ab = np.asarray(ab, np.int64)
-        dil = (ab[:, None, :] - _CORNER_OFFSETS[None]).reshape(-1, 3)
-        np.clip(dil, 0, nb - 1, out=dil)
-        scan = np.unique((dil[:, 0] * nb + dil[:, 1]) * nb + dil[:, 2])
-        sb = np.empty((len(scan), 3), np.int32)
-        sb[:, 0] = scan // (nb * nb)
-        sb[:, 1] = (scan // nb) % nb
-        sb[:, 2] = scan % nb
-        cube_ids, near_gids = native.mt_active_cubes_blocks(
-            u, near_mult * voxel, avg_mult * voxel, sb, B
-        )
-    else:
-        cube_ids, near_gids = native.mt_active_cubes(u, near_mult * voxel, avg_mult * voxel)
-    t0 = mark("mt_pass1", t0)
-    if times is not None:
-        times["mt_cubes"] = len(cube_ids)
-        times["mt_corners"] = len(near_gids)
+    with span("marching.pass1", times, "mt_pass1"):
+        if active_blocks is not None:
+            ab, B = active_blocks
+            # a cube anchored in block b has corners in blocks b..b+1 per axis
+            nb = R // B
+            ab = np.asarray(ab, np.int64)
+            dil = (ab[:, None, :] - _CORNER_OFFSETS[None]).reshape(-1, 3)
+            np.clip(dil, 0, nb - 1, out=dil)
+            scan = np.unique((dil[:, 0] * nb + dil[:, 1]) * nb + dil[:, 2])
+            sb = np.empty((len(scan), 3), np.int32)
+            sb[:, 0] = scan // (nb * nb)
+            sb[:, 1] = (scan // nb) % nb
+            sb[:, 2] = scan % nb
+            cube_ids, near_gids = native.mt_active_cubes_blocks(
+                u, near_mult * voxel, avg_mult * voxel, sb, B
+            )
+        else:
+            cube_ids, near_gids = native.mt_active_cubes(u, near_mult * voxel, avg_mult * voxel)
+    if stats is not None:
+        stats["mt_cubes"] = len(cube_ids)
+        stats["mt_corners"] = len(near_gids)
     if len(cube_ids) == 0:
         return empty_mesh()
-    grad_async = getattr(gradients, "async_call", None) if callable(gradients) else None
-    pending = grad_async(near_gids) if grad_async is not None else None
-    # pass 1 emitted the sorted distinct corners: ranks, not np.unique
-    inv8 = native.mt_corner_ranks(near_gids, cube_ids, R)
-    t0 = mark("mt_unique", t0)
-    g_near = np.asarray(pending(), np.float32) if pending is not None else grad_lookup(near_gids)
-    t0 = mark("mt_grads", t0)
-    g8 = int8_units(g_near)[inv8]
-    t0 = mark("mt_g8", t0)
-    verts, faces = native.mt_emit(u, lo, voxel, cube_ids, g8)
-    mark("mt_pass2", t0)
+    with span("marching.unique", times, "mt_unique"):
+        grad_async = getattr(gradients, "async_call", None) if callable(gradients) else None
+        pending = grad_async(near_gids) if grad_async is not None else None
+        # pass 1 emitted the sorted distinct corners: ranks, not np.unique
+        inv8 = native.mt_corner_ranks(near_gids, cube_ids, R)
+    with span("marching.grads", times, "mt_grads"):  # with async_call, the wait for it
+        g_near = (np.asarray(pending(), np.float32) if pending is not None
+                  else grad_lookup(near_gids))
+    with span("marching.g8", times, "mt_g8"):
+        g8 = int8_units(g_near)[inv8]
+    with span("marching.pass2", times, "mt_pass2"):
+        verts, faces = native.mt_emit(u, lo, voxel, cube_ids, g8)
     return Mesh(verts, faces)
 
 

@@ -9,9 +9,10 @@ in a worker thread: the native passes release the interpreter lock through
 ctypes, and so do CUDA launches and copies.
 
 Torch keeps some state per thread. Each worker takes the caller's current
-CUDA device and stream; grad mode is per thread too, and every extraction
-turns it off itself. Meshes come out in input order and do not depend on
-the depth.
+CUDA device and stream, and the caller's open span (so that an `extract`
+span sits in the caller's call tree); grad mode is per thread too, and
+every extraction turns it off itself. Meshes come out in input order and
+do not depend on the depth.
 
 Under a device mesh (`cfg.mesh`) every extraction issues collectives, and
 a process group's collectives must reach every rank in the same order: two
@@ -31,6 +32,7 @@ from typing import Callable, Iterable, Iterator, Optional
 
 import torch
 
+from ..utils import profiling
 from .generate import (
     MeshExtractionConfig,
     get_mesh_from_udf,
@@ -41,15 +43,21 @@ from .generate import (
 
 def _on_callers_stream(fn: Callable) -> Callable:
     """fn, run in another thread on this thread's current CUDA device and
-    stream (a new thread starts on device 0 and its default stream)."""
-    if not torch.cuda.is_available():
-        return fn
-    device = torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device)
+    stream (a new thread starts on device 0 and its default stream), with
+    this thread's open span (`utils.profiling.current`) as the parent of
+    the spans it opens."""
+    parent = profiling.current()
+    cuda = torch.cuda.is_available()
+    if cuda:
+        device = torch.cuda.current_device()
+        stream = torch.cuda.current_stream(device)
 
     def run(*args):
-        with torch.cuda.device(device), torch.cuda.stream(stream):
-            return fn(*args)
+        with profiling.adopt(parent):
+            if not cuda:
+                return fn(*args)
+            with torch.cuda.device(device), torch.cuda.stream(stream):
+                return fn(*args)
 
     return run
 

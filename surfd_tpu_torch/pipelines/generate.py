@@ -52,6 +52,7 @@ from ..models.decoder import CbnDecoder, coords_encode, udf_from_logits
 from ..ops.decoder_kernel import fold_decoder, folded_udf
 from ..utils.convert import strip_prefix
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 
 class BiasTable:
@@ -340,17 +341,31 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
     library cannot load. With `cfg.mesh` every rank of its 'data' axis makes
     the call on the same udf_fn; each evaluates its share of every query
     and all get the unsharded mesh.
+
+    Spans (`utils.profiling.span`): `extract` around the call, and below it
+    `extract.fill`, `extract.marching`, `extract.face_filter` and
+    `extract.cleanup`, each adding its host seconds to `stats["times"]`
+    under `grid_fill`, `marching`, `face_filter` and `cleanup`; their passes
+    are spans below them with keys of their own (`mt_*`, `ff_*`,
+    `cleanup_finalize`, `cleanup_laplacian`, `cleanup_components`).
+    `stats["times"]` holds seconds, rounded once at the end.
     """
     if isinstance(grad_fn, MeshExtractionConfig):
         raise TypeError("the second argument is grad_fn; pass the config as cfg=")
+    with span("extract"):
+        mesh, stats = _extract(udf_fn, grad_fn, cfg)
+    return (mesh, stats) if return_stats else mesh
+
+
+def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
+    """`get_mesh_from_udf`'s work: (mesh, stats)."""
     dev = _device_of(udf_fn, grad_fn)
     times = {}
-    t0 = time.perf_counter()
-    gf = GridFiller(cfg.resolution, cfg.coords_range, max_batch=cfg.max_batch,
-                    max_dist=cfg.max_dist, surface_bias=cfg.surface_bias, device=dev,
-                    mesh=cfg.mesh)
-    grid, stats = gf.fill(udf_fn, return_stats=True)
-    times["grid_fill"] = time.perf_counter() - t0
+    with span("extract.fill", times, "grid_fill"):
+        gf = GridFiller(cfg.resolution, cfg.coords_range, max_batch=cfg.max_batch,
+                        max_dist=cfg.max_dist, surface_bias=cfg.surface_bias, device=dev,
+                        mesh=cfg.mesh)
+        grid, stats = gf.fill(udf_fn, return_stats=True)
     lo_, hi_ = cfg.coords_range
     R = cfg.resolution
     voxel = (hi_ - lo_) / (R - 1)
@@ -363,23 +378,22 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
     cell = (R // bias_field.shape[0]) * voxel if bias_field is not None else None
     active_blocks = (stats["ab"], stats["block"]) if len(stats.get("ab", ())) else None
 
-    t0 = time.perf_counter()
-    gid_grad = getattr(udf_fn, "grad_i8_gid", None)
-    if grad_fn is None and gid_grad is not None:
-        grad_at = lambda gids: gid_grad(gids, R, lo_, voxel, mesh=cfg.mesh)
-        grad_at.by_gid = True
-        # marching starts it before its host corner-rank pass, so the two overlap
-        grad_at.async_call = lambda gids: udf_fn.grad_i8_gid_async(gids, R, lo_, voxel,
-                                                                   mesh=cfg.mesh)
-    elif getattr(grad_fn, "by_gid", False):
-        grad_at = grad_fn
-    else:
-        point_grad = grad_fn if grad_fn is not None else make_grad_fn(udf_fn)
-        grad_at = lambda pts: eval_in_chunks(point_grad, pts, cfg.max_batch, device=dev,
-                                             mesh=cfg.mesh)
-    mesh = marching_tetrahedra_udf(grid, grad_at, cfg.coords_range, times=times,
-                                   active_blocks=active_blocks)
-    times["marching"] = time.perf_counter() - t0
+    with span("extract.marching", times, "marching"):
+        gid_grad = getattr(udf_fn, "grad_i8_gid", None)
+        if grad_fn is None and gid_grad is not None:
+            grad_at = lambda gids: gid_grad(gids, R, lo_, voxel, mesh=cfg.mesh)
+            grad_at.by_gid = True
+            # marching starts it before its host corner-rank pass, so the two overlap
+            grad_at.async_call = lambda gids: udf_fn.grad_i8_gid_async(gids, R, lo_, voxel,
+                                                                       mesh=cfg.mesh)
+        elif getattr(grad_fn, "by_gid", False):
+            grad_at = grad_fn
+        else:
+            point_grad = grad_fn if grad_fn is not None else make_grad_fn(udf_fn)
+            grad_at = lambda pts: eval_in_chunks(point_grad, pts, cfg.max_batch, device=dev,
+                                                 mesh=cfg.mesh)
+        mesh = marching_tetrahedra_udf(grid, grad_at, cfg.coords_range, times=times,
+                                       stats=stats, active_blocks=active_blocks)
     stats["raw_faces"] = len(mesh.faces)
 
     # Output guards: every MT vertex is a convex combination of grid nodes,
@@ -396,96 +410,103 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
     stats["face_explosion"] = stats["face_budget_ratio"] > 2.0
 
     if len(mesh.faces) and cfg.filter_faces:
-        t0 = time.perf_counter()
         pre = getattr(udf_fn, "below_q16", None) is not None and cfg.quantized_filter_points
         cleanup = dict(fill_holes=cfg.do_stabilize,
                        smooth_iters=20 if cfg.do_smooth_borders else 0,
                        lam=0.3, merge_decimals=6)
-        if pre:
-            bias_tbl = BiasTable(bias_field, lo_, cell, dev) if bias_field is not None else None
-            threshold = cfg.face_filter_mult / R + (0.0 if bias_tbl is not None else surf_bias)
-            qstep = (hi_ - lo_) / 65535.0
-            two_tier, band = cfg.two_tier_filter, None
-            if two_tier:
-                band = (cfg.two_tier_band if cfg.two_tier_band is not None
-                        else udf_fn.two_tier_band(mesh=cfg.mesh))
-                # filter points sit on the surface, where |udf − thr| is
-                # small: a wide band re-checks most of them and one f32 pass
-                # is cheaper
-                two_tier = band < 0.25 * threshold
-            stats.update(ff_band=band, ff_threshold=threshold, ff_two_tier=two_tier)
-            qverts = np.clip(np.rint((mesh.vertices - lo_) * (1.0 / qstep)), 0,
-                             65535).astype(np.uint16)
-            # overlap: the vertex query runs on the device while the host
-            # builds the edge structure, then the midpoint query; the u16
-            # points go up as 2 bytes each (int16 bits, widened on the device)
-            bound = (udf_fn.below2t_q16_bound(threshold, lo_, qstep, band, bias_tbl) if two_tier
-                     else udf_fn.below_q16_bound(threshold, lo_, qstep, bias_tbl))
-            query = lambda qp: eval_in_chunks_async(bound, qp.view(np.int16), udf_fn.chunk,
-                                                    device=dev, mesh=cfg.mesh)
-            verts_pending = query(qverts)
-            qmids, einv, ea, eb = native.face_filter_prep_q16(mesh.vertices, mesh.faces, lo_,
-                                                              1.0 / qstep)
-            times["ff_prep"] = round(time.perf_counter() - t0, 3)
-            mids_pending = query(qmids)
-            t1 = time.perf_counter()
-            res = np.concatenate([verts_pending(), mids_pending()])
-            times["ff_fetch"] = round(time.perf_counter() - t1, 3)
-            if two_tier:
-                ok, sure = res[:, 0].copy(), res[:, 1]
-                uns = np.flatnonzero(~sure)
-                stats["ff_unsure"] = int(len(uns))
-                if len(uns):
-                    # tier 2 (f32, exact): only the band points re-query
-                    t1 = time.perf_counter()
-                    qall = np.concatenate([qverts, qmids])[uns]
-                    ok[uns] = eval_in_chunks(udf_fn.below_q16_bound(threshold, lo_, qstep,
-                                                                    bias_tbl),
-                                             qall.view(np.int16), udf_fn.chunk, device=dev,
-                                             mesh=cfg.mesh)
-                    times["ff_t2"] = round(time.perf_counter() - t1, 3)
+        with span("extract.face_filter", times, "face_filter"):
+            if pre:
+                with span("face_filter.prep", times, "ff_prep"):
+                    bias_tbl = (BiasTable(bias_field, lo_, cell, dev) if bias_field is not None
+                                else None)
+                    threshold = cfg.face_filter_mult / R + (0.0 if bias_tbl is not None
+                                                            else surf_bias)
+                    qstep = (hi_ - lo_) / 65535.0
+                    two_tier, band = cfg.two_tier_filter, None
+                    if two_tier:
+                        band = (cfg.two_tier_band if cfg.two_tier_band is not None
+                                else udf_fn.two_tier_band(mesh=cfg.mesh))
+                        # filter points sit on the surface, where |udf − thr| is
+                        # small: a wide band re-checks most of them and one f32 pass
+                        # is cheaper
+                        two_tier = band < 0.25 * threshold
+                    stats.update(ff_band=band, ff_threshold=threshold, ff_two_tier=two_tier)
+                    qverts = np.clip(np.rint((mesh.vertices - lo_) * (1.0 / qstep)), 0,
+                                     65535).astype(np.uint16)
+                    # overlap: the vertex query runs on the device while the host
+                    # builds the edge structure, then the midpoint query; the u16
+                    # points go up as 2 bytes each (int16 bits, widened on the device)
+                    bound = (udf_fn.below2t_q16_bound(threshold, lo_, qstep, band, bias_tbl)
+                             if two_tier else udf_fn.below_q16_bound(threshold, lo_, qstep,
+                                                                     bias_tbl))
+                    query = lambda qp: eval_in_chunks_async(bound, qp.view(np.int16),
+                                                            udf_fn.chunk, device=dev,
+                                                            mesh=cfg.mesh)
+                    verts_pending = query(qverts)
+                    qmids, einv, ea, eb = native.face_filter_prep_q16(
+                        mesh.vertices, mesh.faces, lo_, 1.0 / qstep)
+                mids_pending = query(qmids)
+                with span("face_filter.fetch", times, "ff_fetch"):
+                    res = np.concatenate([verts_pending(), mids_pending()])
+                if two_tier:
+                    ok, sure = res[:, 0].copy(), res[:, 1]
+                    uns = np.flatnonzero(~sure)
+                    stats["ff_unsure"] = int(len(uns))
+                    if len(uns):
+                        # tier 2 (f32, exact): only the band points re-query
+                        with span("face_filter.t2", times, "ff_t2"):
+                            qall = np.concatenate([qverts, qmids])[uns]
+                            ok[uns] = eval_in_chunks(
+                                udf_fn.below_q16_bound(threshold, lo_, qstep, bias_tbl),
+                                qall.view(np.int16), udf_fn.chunk, device=dev, mesh=cfg.mesh)
+                else:
+                    ok = res
+                ok = ok.view(np.uint8)
             else:
-                ok = res
-            ok = ok.view(np.uint8)
-            times["face_filter"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            v, f = native.finalize_mesh_pre(mesh.vertices, mesh.faces, ok, einv, ea, eb,
-                                            **cleanup)
-        else:
-            # exact f32 points, the bias field looked up point by point
-            bias_at = make_field_bias_at(bias_field, lo_, cell) if bias_field is not None else None
-            threshold = cfg.face_filter_mult / R + (0.0 if bias_at is not None else surf_bias)
-            stats.update(ff_band=None, ff_threshold=threshold, ff_two_tier=False)
-            pts, einv = native.face_filter_prep(mesh.vertices, mesh.faces)
-            times["ff_prep"] = round(time.perf_counter() - t0, 3)
-            ok = _below_f32(udf_fn, pts, threshold, cfg.max_batch, bias_at, dev, cfg.mesh)
-            times["face_filter"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            v, f = native.finalize_mesh(mesh.vertices, mesh.faces, ok, einv, **cleanup)
-        mesh = Mesh(v, f)
-        if cfg.final_laplacian_iters:
-            mesh = laplacian_smooth(mesh, iterations=cfg.final_laplacian_iters, lam=0.5)
-        if cfg.min_component_faces:
-            mesh = filter_small_components(mesh, cfg.min_component_faces)
-        times["cleanup"] = time.perf_counter() - t0
+                # exact f32 points, the bias field looked up point by point
+                with span("face_filter.prep", times, "ff_prep"):
+                    bias_at = (make_field_bias_at(bias_field, lo_, cell) if bias_field is not None
+                               else None)
+                    threshold = cfg.face_filter_mult / R + (0.0 if bias_at is not None
+                                                            else surf_bias)
+                    stats.update(ff_band=None, ff_threshold=threshold, ff_two_tier=False)
+                    pts, einv = native.face_filter_prep(mesh.vertices, mesh.faces)
+                ok = _below_f32(udf_fn, pts, threshold, cfg.max_batch, bias_at, dev, cfg.mesh)
+        with span("extract.cleanup", times, "cleanup"):
+            with span("cleanup.finalize", times, "cleanup_finalize"):
+                if pre:
+                    v, f = native.finalize_mesh_pre(mesh.vertices, mesh.faces, ok, einv, ea, eb,
+                                                    **cleanup)
+                else:
+                    v, f = native.finalize_mesh(mesh.vertices, mesh.faces, ok, einv, **cleanup)
+                mesh = Mesh(v, f)
+            mesh = _final_passes(mesh, cfg, times)
     elif len(mesh.faces):
         # no filter: the numpy cleanup chain (MT output is duplicate-free)
-        t0 = time.perf_counter()
-        if cfg.do_stabilize:
-            mesh = stabilize(mesh, assume_clean=True)
-        if cfg.do_smooth_borders:
-            mesh = smooth_borders(mesh, iterations=20, lam=0.3)
-        if cfg.final_laplacian_iters:
-            mesh = laplacian_smooth(mesh, iterations=cfg.final_laplacian_iters, lam=0.5)
-        if cfg.min_component_faces:
-            mesh = filter_small_components(mesh, cfg.min_component_faces)
-        mesh = merge_duplicate_vertices(mesh)
-        times["cleanup"] = time.perf_counter() - t0
+        with span("extract.cleanup", times, "cleanup"):
+            with span("cleanup.finalize", times, "cleanup_finalize"):
+                if cfg.do_stabilize:
+                    mesh = stabilize(mesh, assume_clean=True)
+                if cfg.do_smooth_borders:
+                    mesh = smooth_borders(mesh, iterations=20, lam=0.3)
+            mesh = _final_passes(mesh, cfg, times)
+            with span("cleanup.finalize", times, "cleanup_finalize"):
+                mesh = merge_duplicate_vertices(mesh)
 
-    if return_stats:
-        stats["final_faces"] = len(mesh.faces)
-        stats["times"] = {k: round(v, 3) for k, v in times.items()}
-        return mesh, stats
+    stats["final_faces"] = len(mesh.faces)
+    stats["times"] = {k: round(v, 4) for k, v in times.items()}
+    return mesh, stats
+
+
+def _final_passes(mesh: Mesh, cfg: MeshExtractionConfig, times: dict) -> Mesh:
+    """The cleanup's passes after the finalize: the Laplacian smoothing and
+    the small-component filter, where `cfg` asks for them."""
+    if cfg.final_laplacian_iters:
+        with span("cleanup.laplacian", times, "cleanup_laplacian"):
+            mesh = laplacian_smooth(mesh, iterations=cfg.final_laplacian_iters, lam=0.5)
+    if cfg.min_component_faces:
+        with span("cleanup.components", times, "cleanup_components"):
+            mesh = filter_small_components(mesh, cfg.min_component_faces)
     return mesh
 
 
@@ -544,6 +565,9 @@ def sample_latents(
 
     clip_denoised defaults False as in every reference generate script:
     autoencoder latents are not bounded to [-1, 1].
+
+    Spans (`utils.profiling.span`): `sample` around the loop, whose steps
+    are `sample.step` spans, and `sample.denoise` around each model_fn call.
     """
     loops = {"ddpm": p_sample_loop, "ddim": ddim_sample_loop, "plms": plms_sample_loop}
     if sampler not in loops:
@@ -552,8 +576,14 @@ def sample_latents(
         raise ValueError("PLMS draws no step noise")
     kw = {} if sampler == "plms" else {"step_noise": step_noise}
     dev = resolve_device(device)
-    out = loops[sampler](
-        sched, model_fn, (num_samples, latent_len, 1), generator, device=dev, noise=noise,
-        clip_denoised=clip_denoised, var_type=var_type, **kw,
-    )
+
+    def denoise(x, t):
+        with span("sample.denoise"):
+            return model_fn(x, t)
+
+    with span("sample"):
+        out = loops[sampler](
+            sched, denoise, (num_samples, latent_len, 1), generator, device=dev, noise=noise,
+            clip_denoised=clip_denoised, var_type=var_type, **kw,
+        )
     return out[..., 0]

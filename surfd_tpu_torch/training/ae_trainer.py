@@ -30,6 +30,7 @@ from torch import nn
 
 from ..models.decoder import CbnDecoder, Conv1x1, coords_encode
 from ..models.dgcnn import Dgcnn
+from ..utils.profiling import span
 from .common import TrainState, apply_update_if_finite, on_device, snapshot_buffers
 
 
@@ -131,7 +132,9 @@ def make_ae_train_step(ae: AutoEncoder, max_dist: float = 0.1, grad_loss_weight:
     max(3 · their count, 1). Metrics (device tensors but
     `nonfinite_skipped`): loss, udf_loss, grad_loss, grad_norm,
     nonfinite_skipped. `train_step.loss_fn(batch)` is the step's loss alone,
-    (loss, terms), for tests.
+    (loss, terms), for tests. Spans: `train.step`, and below it
+    `train.forward` (the batch's upload, the forward with the coordinate
+    gradient, the loss), `train.backward` and `train.update`.
     """
     device = next(ae.parameters()).device
 
@@ -155,10 +158,14 @@ def make_ae_train_step(ae: AutoEncoder, max_dist: float = 0.1, grad_loss_weight:
         return loss, {"udf_loss": udf_loss, "grad_loss": grad_loss}
 
     def train_step(state: TrainState, batch) -> dict:
-        buffers = snapshot_buffers(state.model)  # the forward moves the running statistics
-        loss, terms = loss_fn(batch)
-        loss.backward()
-        ok, gnorm = apply_update_if_finite(state, loss, buffers)
+        with span("train.step"):
+            with span("train.forward"):
+                # the forward moves the running statistics
+                buffers = snapshot_buffers(state.model)
+                loss, terms = loss_fn(batch)
+            with span("train.backward"):
+                loss.backward()
+            ok, gnorm = apply_update_if_finite(state, loss, buffers)
         return {
             "loss": loss.detach(),
             "udf_loss": terms["udf_loss"].detach(),

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.profiling import span
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -120,22 +122,23 @@ def apply_update_if_finite(state: TrainState, loss: torch.Tensor,
     state's rate; else nothing, and each of `buffers` (`snapshot_buffers`
     from before the forward) back to its copy. The step counter advances
     either way and the gradients are cleared. Returns (applied, gradient
-    norm)."""
-    params = [p for p in state.model.parameters() if p.grad is not None]
-    gnorm = global_norm([p.grad for p in params])
-    ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))  # the step's one host sync
-    if ok:
-        for group in state.optimizer.param_groups:
-            group["lr"] = staircase_lr(group, state.count)
-        state.optimizer.step()
-        state.count += 1
-        if state.ema is not None:
-            ema_update(state.ema, state.model.parameters(), state.ema_rate)
-    else:
-        for live, saved in buffers or ():
-            live.copy_(saved)
-    state.optimizer.zero_grad(set_to_none=True)
-    state.step += 1
+    norm). A `train.update` span."""
+    with span("train.update"):
+        params = [p for p in state.model.parameters() if p.grad is not None]
+        gnorm = global_norm([p.grad for p in params])
+        ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))  # the step's one host sync
+        if ok:
+            for group in state.optimizer.param_groups:
+                group["lr"] = staircase_lr(group, state.count)
+            state.optimizer.step()
+            state.count += 1
+            if state.ema is not None:
+                ema_update(state.ema, state.model.parameters(), state.ema_rate)
+        else:
+            for live, saved in buffers or ():
+                live.copy_(saved)
+        state.optimizer.zero_grad(set_to_none=True)
+        state.step += 1
     return ok, gnorm
 
 

@@ -24,7 +24,6 @@ from surfd_tpu_torch.data import manifests as tman
 from surfd_tpu_torch.data import preprocess as tpre
 from surfd_tpu_torch.geometry import Mesh, marching_tetrahedra, read_obj, write_obj
 from surfd_tpu_torch.utils import config as tconfig
-from surfd_tpu_torch.utils.profiling import PhaseTimer
 
 SMALL = dict(num_points_pcd=1000, counts=(500, 400, 50), num_uniform=50)
 
@@ -264,14 +263,3 @@ def test_configs_round_trip_and_override_as_jax(tmp_path):
     assert tconfig.load_config(str(tmp_path / "j.json")) == t
     back = jconfig.load_config(str(tmp_path / "t.json"))
     assert dataclasses.asdict(back) == dataclasses.asdict(t)
-
-
-def test_phase_timer():
-    timer = PhaseTimer()
-    for _ in range(2):
-        with timer.phase("a"):
-            pass
-    with pytest.raises(RuntimeError):
-        with timer.phase("b"):
-            raise RuntimeError
-    assert timer.counts == {"a": 2, "b": 1} and set(timer.summary()) == {"a", "b"}
