@@ -23,7 +23,11 @@ Phases, each fatal on failure:
      reject, the training shapes timed at B 2 beside SDPA's backward (its
      cluster size and CTAs in each row, read from the launch grid that the
      profiler's trace records; whether its device time is below SDPA's is
-     logged, not a gate);
+     logged, not a gate); the cleanup's Laplacian (3 iterations) on the
+     sheet's finalized 256^3 mesh against numpy's pass (max abs <= 1e-6,
+     two calls bit-equal), timed beside its bound in bytes, the plain
+     version, three index_add_ passes, numpy on the host and the whole
+     call from and back to the host;
   3. sampling: 1000 DDPM steps of the full-width MDM (random weights from a
      seed), B = 2 — K2 must launch 16 x 1000 times;
   4. extraction: the shipped trained sheet decoder at 256^3 with
@@ -228,6 +232,13 @@ K2_BWD_EDGE = ((1, 28), (3, 112), (17, 56), (33, 28), (63, 28))
 # K2-bwd against qkv_attention_bwd_ref: max abs error over max(1, max |ref|).
 # PERF.md gives the readings, sound and with planted faults, it was set from.
 K2_BWD_BAR = 2e-5
+LAP_SRC = "surfd_tpu_torch/ops/csrc/mesh_laplacian.cu"
+LAP_TPU = ("none: the JAX package smooths in float64 numpy "
+           "(surfd_tpu/geometry/mesh_ops.py:184-200, laplacian_smooth)")
+# The Laplacian against numpy's pass: float64 sums in another order would
+# differ by at most one float32 ulp after the cast; the kernel sums in
+# numpy's order and is expected to read 0.
+LAP_BAR = 1e-6
 # The JAX package's face count for the sheet fixture at 256^3, auto bias
 # (surfd_tpu on the CPU, max_batch 2^16; ROADMAP queue 1 item 1). The card
 # has no JAX, so the number is kept here.
@@ -490,7 +501,77 @@ def phase_kernels(dev, hgmma=None):
                 f"(token-major {tok_ms * 1e3:.2f} us) plain {plain_ms * 1e3:.2f} us "
                 f"SDPA {lib_ms * 1e3:.2f} us bound {b_ms * 1e3:.3f} us ({b_by})")
     rows += kernels_bwd(dev, k2_calls)
+    rows.append(kernels_laplacian(dev))
     return rows, k2_calls
+
+
+def kernels_laplacian(dev, iterations: int = 3) -> dict:
+    """The cleanup's Laplacian on the sheet's finalized 256^3 mesh (the
+    fixture decoder, the default extraction without the final passes)
+    against numpy's pass, two calls bit-equal; timed (CUDA events) beside
+    its bound in bytes (the f32 vertices and int64 faces read once, the f32
+    vertices written once), the plain version on the card, three passes of
+    index_add_ over the directed edges built beforehand (the library's
+    scatter-add doing the sums), numpy's pass on this host, and the whole
+    call as the cleanup makes it (host arrays up through to_device, the
+    vertices back; host clock)."""
+    from surfd_tpu_torch.geometry import mesh_ops
+    from surfd_tpu_torch.geometry.grid import to_device
+    from surfd_tpu_torch.ops import mesh_laplacian as ml
+    from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf, make_udf_fn
+
+    dec, fx = load_fixture_decoder(dev)
+    udf_fn = make_udf_fn(dec, None, torch.from_numpy(fx["latent"]), fx["max_dist"], device=dev)
+    mesh = get_mesh_from_udf(udf_fn, cfg=MeshExtractionConfig(resolution=256, surface_bias="auto"))
+    V, F = len(mesh.vertices), len(mesh.faces)
+    v, f = torch.from_numpy(mesh.vertices).to(dev), torch.from_numpy(mesh.faces).to(dev)
+    numpy_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        want = mesh_ops.laplacian_smooth(mesh, iterations, 0.5).vertices
+        numpy_s.append(time.perf_counter() - t0)
+    kern = lambda: ml.laplacian_smooth(v, f, iterations, 0.5)
+    got = kern().cpu().numpy()
+    if not np.array_equal(kern().cpu().numpy(), got):
+        raise RuntimeError("mesh_laplacian: two calls differ")
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    differing = int((got != want).sum())
+    if not err <= LAP_BAR:
+        raise RuntimeError(f"mesh_laplacian: max abs err {err} > {LAP_BAR}")
+    plain = lambda: ml.laplacian_smooth_ref(v, f, iterations, 0.5)
+    e = torch.cat([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]],
+                   f[:, [1, 0]], f[:, [2, 1]], f[:, [0, 2]]])
+    cnt = torch.zeros(V, dtype=torch.float64, device=dev).index_add_(
+        0, e[:, 0], torch.ones(len(e), dtype=torch.float64, device=dev)).clamp(min=1)[:, None]
+    v64 = v.double()
+
+    def index_add_passes():
+        p = v64
+        for _ in range(iterations):
+            p = p + 0.5 * (torch.zeros_like(p).index_add_(0, e[:, 0], p[e[:, 1]]) / cnt - p)
+        return p
+
+    ms, lib_ms = time_ms_turns([kern, index_add_passes], reps=20)
+    plain_ms = time_ms(plain, reps=5)
+    call_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ml.laplacian_smooth(to_device(mesh.vertices, dev), to_device(mesh.faces, dev),
+                            iterations, 0.5).cpu().numpy()
+        call_s.append(time.perf_counter() - t0)
+    b_ms, b_by = bound(24.0 * V + 24.0 * F, 0.0, "f32")
+    row = {"name": "mesh_laplacian", "route": "cuda", "source": LAP_SRC, "replaces": LAP_TPU,
+           "launches": 0, "max_abs_err": err, "coordinates_differing": differing, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "numpy_host_ms": 1e3 * statistics.median(numpy_s),
+           "call_from_host_ms": 1e3 * statistics.median(call_s),
+           "shape": f"V={V} F={F} iterations={iterations} (the sheet's 256^3 mesh)"}
+    log(f"[kernels] mesh_laplacian V={V} F={F}: max abs err {err:.3g} (bar {LAP_BAR:g}), "
+        f"{differing} coordinates differ from numpy, two calls equal; kernel {ms:.3f} ms "
+        f"plain {plain_ms:.3f} ms index_add_ {lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by}); "
+        f"numpy on the host {row['numpy_host_ms']:.1f} ms (runs {numpy_s}); the call from "
+        f"the host {row['call_from_host_ms']:.2f} ms (runs {call_s})")
+    return row
 
 
 def _bwd_err(got, want) -> float:
@@ -707,6 +788,7 @@ _CHILD_LOCK = threading.Lock()  # run_clis adds from several threads
 def reset_counts():
     from surfd_tpu_torch.ops import attention_kernel as ak
     from surfd_tpu_torch.ops import decoder_kernel as dk
+    from surfd_tpu_torch.ops import mesh_laplacian as ml
 
     CHILD_LAUNCHES.clear()
     dk.folded_udf.launches.update(f32=0, bf16=0)
@@ -716,6 +798,8 @@ def reset_counts():
     dk.folded_udf_mixed_ref.calls = 0
     ak.qkv_attention_ref.calls = 0
     ak.qkv_attention_bwd_ref.calls = 0
+    ml.laplacian_smooth.launches = 0
+    ml.laplacian_smooth_ref.calls = 0
 
 
 def launch_counts() -> dict:

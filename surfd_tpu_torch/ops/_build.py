@@ -106,6 +106,11 @@ def load() -> ctypes.CDLL:
             # qkv, dO, dqkv, B, T, H, C, scale, the three tensors' strides, stream
             lib.surfd_qkv_attention_bwd.argtypes = ([vp, vp, vp, i32, i32, i32, i32, f32]
                                                     + [i64] * 9 + [vp])
+            lib.surfd_mesh_laplacian.restype = i32
+            # vertices, faces, V, F, iterations, lam, out, fi, cnt, off, tile_sums,
+            # corners, buf0, buf1, bad, stream
+            lib.surfd_mesh_laplacian.argtypes = ([vp, vp, i64, i64, i32, ctypes.c_double]
+                                                 + [vp] * 10)
             _lib = lib
         return _lib
 

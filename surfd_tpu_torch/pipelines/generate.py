@@ -13,7 +13,9 @@ through kernel K1 (`ops.folded_udf`): precision "f32" for the coarse,
 sub-block and fine fill, the single-tier, tier-2 and exact-point face-filter
 values and the band calibration's reference; "bf16" for tier 1 of the
 two-tier filter. Gradients are torch autograd through the float32
-CbnDecoder.
+CbnDecoder. On CUDA the cleanup's Laplacian smoothing runs on the card
+(`ops.mesh_laplacian`, numpy's result bit for bit); on the CPU it is
+numpy's `geometry.mesh_ops.laplacian_smooth`.
 
 Deliberate deviation from the JAX package: where the native library cannot
 load, JAX falls back to `filter_faces_by_udf` and numpy marching; the port
@@ -49,6 +51,7 @@ from ..geometry import (
 from ..geometry.grid import GRAD_CHUNK, _chunked, to_device
 from ..geometry.mesh_ops import _unique_i64
 from ..models.decoder import CbnDecoder, coords_encode, udf_from_logits
+from ..ops import mesh_laplacian
 from ..ops.decoder_kernel import fold_decoder, folded_udf
 from ..utils.convert import strip_prefix
 from ..utils.device import resolve_device
@@ -480,7 +483,7 @@ def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
                 else:
                     v, f = native.finalize_mesh(mesh.vertices, mesh.faces, ok, einv, **cleanup)
                 mesh = Mesh(v, f)
-            mesh = _final_passes(mesh, cfg, times)
+            mesh = _final_passes(mesh, cfg, times, dev)
     elif len(mesh.faces):
         # no filter: the numpy cleanup chain (MT output is duplicate-free)
         with span("extract.cleanup", times, "cleanup"):
@@ -489,7 +492,7 @@ def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
                     mesh = stabilize(mesh, assume_clean=True)
                 if cfg.do_smooth_borders:
                     mesh = smooth_borders(mesh, iterations=20, lam=0.3)
-            mesh = _final_passes(mesh, cfg, times)
+            mesh = _final_passes(mesh, cfg, times, dev)
             with span("cleanup.finalize", times, "cleanup_finalize"):
                 mesh = merge_duplicate_vertices(mesh)
 
@@ -498,12 +501,22 @@ def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
     return mesh, stats
 
 
-def _final_passes(mesh: Mesh, cfg: MeshExtractionConfig, times: dict) -> Mesh:
+def _final_passes(mesh: Mesh, cfg: MeshExtractionConfig, times: dict,
+                  dev: torch.device) -> Mesh:
     """The cleanup's passes after the finalize: the Laplacian smoothing and
-    the small-component filter, where `cfg` asks for them."""
+    the small-component filter, where `cfg` asks for them. On CUDA the
+    smoothing runs on the card: the mesh goes up pinned, the float32
+    vertices come back; the faces stay on the host as they are."""
     if cfg.final_laplacian_iters:
         with span("cleanup.laplacian", times, "cleanup_laplacian"):
-            mesh = laplacian_smooth(mesh, iterations=cfg.final_laplacian_iters, lam=0.5)
+            if dev.type == "cuda":
+                v = mesh_laplacian.laplacian_smooth(
+                    to_device(np.asarray(mesh.vertices, np.float32), dev),
+                    to_device(np.asarray(mesh.faces, np.int64), dev),
+                    cfg.final_laplacian_iters, 0.5)
+                mesh = Mesh(v.cpu().numpy(), mesh.faces)
+            else:
+                mesh = laplacian_smooth(mesh, iterations=cfg.final_laplacian_iters, lam=0.5)
     if cfg.min_component_faces:
         with span("cleanup.components", times, "cleanup_components"):
             mesh = filter_small_components(mesh, cfg.min_component_faces)

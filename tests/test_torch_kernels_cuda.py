@@ -629,3 +629,110 @@ def test_remat_step_on_card_matches_plain(cuda):
     assert torch.equal(s0, s1)
     for n, w in g0.items():
         assert torch.equal(g1[n], w), n
+
+
+# The cleanup's Laplacian (ops/csrc/mesh_laplacian.cu) against numpy's pass.
+# The kernel sums in numpy's order and is expected to read 0; the bar allows
+# float64 sums taken in another order, ~1e-16 relative, which is at most one
+# float32 ulp (6e-8 at |v| <= 1) after the cast.
+LAPLACIAN_ATOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def sheet_256():
+    """The sheet fixture at 256³ on the card, finalized and not smoothed:
+    (evaluator, mesh)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf
+    from surfd_tpu_torch.utils import use_full_f32
+
+    use_full_f32()
+    udf_fn = _fixture_evaluator(torch.device("cuda"))
+    mesh = get_mesh_from_udf(udf_fn, cfg=MeshExtractionConfig(resolution=256, surface_bias="auto"))
+    return udf_fn, mesh
+
+
+def _laplacian_on_card(mesh, iterations=3):
+    from surfd_tpu_torch.ops import mesh_laplacian as ml
+
+    v = torch.from_numpy(mesh.vertices).cuda()
+    f = torch.from_numpy(mesh.faces).cuda()
+    out = ml.laplacian_smooth(v, f, iterations, 0.5)
+    torch.cuda.synchronize()
+    return out.cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_laplacian_matches_numpy_at_256(sheet_256, record_property):
+    from surfd_tpu_torch.geometry import mesh_ops
+
+    _, mesh = sheet_256
+    assert len(mesh.faces) > 1_000_000
+    want = mesh_ops.laplacian_smooth(mesh, 3, 0.5).vertices
+    got = _laplacian_on_card(mesh)
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    record_property("max_abs_err", err)
+    record_property("coordinates_differing", int((got != want).sum()))
+    assert err <= LAPLACIAN_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations", [1, 2, 3])
+def test_laplacian_is_bit_stable(sheet_256, iterations):
+    """Two calls give the same bits: the rows are sorted after the atomic
+    fill."""
+    _, mesh = sheet_256
+    np.testing.assert_array_equal(_laplacian_on_card(mesh, iterations),
+                                  _laplacian_on_card(mesh, iterations))
+
+
+@pytest.mark.cuda
+def test_laplacian_edge_meshes_match_numpy(cuda):
+    """A degenerate face, a repeated face, vertices in no face, no faces."""
+    from surfd_tpu_torch.geometry import mesh_ops
+    from surfd_tpu_torch.geometry.marching import Mesh
+
+    rng = np.random.default_rng(4)
+    v = rng.uniform(-1, 1, (400, 3)).astype(np.float32)
+    f = rng.integers(0, 380, (1200, 3))
+    f[:60, 1] = f[:60, 0]
+    f = np.concatenate([f, f[:120]]).astype(np.int64)
+    for mesh in (Mesh(v, f), Mesh(v, f[:1]), Mesh(v, np.zeros((0, 3), np.int64))):
+        for iterations in (1, 3):
+            want = mesh_ops.laplacian_smooth(mesh, iterations, 0.5).vertices
+            got = _laplacian_on_card(mesh, iterations)
+            assert np.abs(got.astype(np.float64) - want).max() <= LAPLACIAN_ATOL
+
+
+@pytest.mark.cuda
+def test_laplacian_rejects_ids_outside(cuda):
+    from surfd_tpu_torch.ops import mesh_laplacian as ml
+
+    v = torch.zeros((4, 3), device=cuda)
+    for bad in (4, -1):
+        f = torch.tensor([[0, 1, 2], [1, bad, 2]], device=cuda)
+        with pytest.raises(ValueError, match="outside"):
+            ml.laplacian_smooth(v, f, 3, 0.5)
+
+
+@pytest.mark.cuda
+def test_extraction_on_card_runs_the_laplacian_kernel(sheet_256):
+    """One 256³ extraction with the CLIs' cleanup (3 iterations, components
+    of 2,500 faces) launches the kernel once and gives the numpy path's
+    mesh: the finalized mesh through numpy's smoothing and the filter."""
+    from surfd_tpu_torch.geometry import filter_small_components, mesh_ops
+    from surfd_tpu_torch.ops import mesh_laplacian as ml
+    from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf
+
+    udf_fn, finalized = sheet_256
+    before = ml.laplacian_smooth.launches
+    got, stats = get_mesh_from_udf(
+        udf_fn, cfg=MeshExtractionConfig(resolution=256, surface_bias="auto",
+                                          final_laplacian_iters=3, min_component_faces=2500),
+        return_stats=True)
+    assert ml.laplacian_smooth.launches == before + 1
+    want = filter_small_components(mesh_ops.laplacian_smooth(finalized, 3, 0.5), 2500)
+    assert stats["final_faces"] == len(want.faces)
+    np.testing.assert_array_equal(got.faces, want.faces)
+    assert np.abs(got.vertices.astype(np.float64) - want.vertices).max() <= LAPLACIAN_ATOL
