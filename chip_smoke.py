@@ -29,7 +29,10 @@ Phases, each fatal on failure:
      version, three index_add_ passes, numpy on the host and the whole
      call from and back to the host;
   3. sampling: 1000 DDPM steps of the full-width MDM (random weights from a
-     seed), B = 2 — K2 must launch 16 x 1000 times;
+     seed), B = 2, through make_cfg_model_fn (the CLIs' path: one CUDA graph
+     captured, 999 replays), then eagerly through the MDM itself, in that
+     order — each run K2 16 x 1000 launches by the replay-aware counter,
+     the two runs' latents bit-equal, both walls logged;
   4. extraction: the shipped trained sheet decoder at 256^3 with
      surface_bias="auto" through get_mesh_from_udf — the JAX package's bars
      (tests/test_e2e_fixture.py), the face count within 1 % of the JAX
@@ -361,21 +364,26 @@ def device_us_per_call(fn, name: str, calls: int = 100, grids: bool = False) -> 
     back-to-back calls: the mean time of each kernel whose name holds `name`,
     summed over those kernels (each launches once per call). Also returns the
     fewest launches the profiler recorded of any of them, since it can drop
-    events, and with `grids` the set of launch grids (x, y, z) that the trace
+    events (a session that records none of them is taken again, three at
+    most), and with `grids` the set of launch grids (x, y, z) that the trace
     records for them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key and _device_us(e) > 0]
-    if not evts:
-        raise RuntimeError(f"profiler saw no device time for kernels named {name!r}")
+    for _ in range(3):  # a session of ~1.5 ms can record none of its kernels: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key and _device_us(e) > 0]
+        if evts:
+            break
+    else:
+        raise RuntimeError(f"profiler saw no device time for kernels named {name!r} "
+                           "in three sessions")
     us, n = sum(_device_us(e) / e.count for e in evts), min(e.count for e in evts)
     if not grids:
         return us, n
@@ -786,6 +794,7 @@ _CHILD_LOCK = threading.Lock()  # run_clis adds from several threads
 
 
 def reset_counts():
+    from surfd_tpu_torch.ops import GraphedCall
     from surfd_tpu_torch.ops import attention_kernel as ak
     from surfd_tpu_torch.ops import decoder_kernel as dk
     from surfd_tpu_torch.ops import mesh_laplacian as ml
@@ -800,6 +809,7 @@ def reset_counts():
     ak.qkv_attention_bwd_ref.calls = 0
     ml.laplacian_smooth.launches = 0
     ml.laplacian_smooth_ref.calls = 0
+    GraphedCall.captures = GraphedCall.replays = 0
 
 
 def launch_counts() -> dict:
@@ -850,7 +860,8 @@ def run_clis(jobs) -> list:
 
 def phase_sample(dev):
     from surfd_tpu_torch.diffusion import named_schedule
-    from surfd_tpu_torch.models import MDM
+    from surfd_tpu_torch.models import MDM, make_cfg_model_fn
+    from surfd_tpu_torch.ops import GraphedCall
     from surfd_tpu_torch.ops import attention_kernel as ak
     from surfd_tpu_torch.pipelines import sample_latents
 
@@ -858,22 +869,34 @@ def phase_sample(dev):
     mdm.Unet.random_init_(torch.Generator().manual_seed(0))
     mdm.to(dev)
     sched = named_schedule("cosine", 1000)
-    before = sum(ak.qkv_attention.launches.values())
-    g = torch.Generator(device=dev).manual_seed(10)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        lat = sample_latents(sched, mdm, 2, 32, g, device=dev)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    n = sum(ak.qkv_attention.launches.values()) - before
-    if tuple(lat.shape) != (2, 32) or not bool(torch.isfinite(lat).all()):
-        raise RuntimeError(f"latents bad: shape {tuple(lat.shape)}")
-    if n != 16 * 1000:
-        raise RuntimeError(f"K2 launched {n} times in sampling, want 16000")
-    log(f"[sample] 1000 DDPM steps, B=2, full-width MDM: {dt:.2f}s, K2 launches {n}, "
+
+    def run(model_fn):
+        before = sum(ak.qkv_attention.launches.values())
+        g = torch.Generator(device=dev).manual_seed(10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = sample_latents(sched, model_fn, 2, 32, g, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = sum(ak.qkv_attention.launches.values()) - before
+        if tuple(lat.shape) != (2, 32) or not bool(torch.isfinite(lat).all()):
+            raise RuntimeError(f"latents bad: shape {tuple(lat.shape)}")
+        if n != 16 * 1000:
+            raise RuntimeError(f"K2 launched {n} times in sampling, want 16000")
+        return lat, dt
+
+    graphs = (GraphedCall.captures, GraphedCall.replays)
+    lat, dt = run(make_cfg_model_fn(mdm, 1.0))
+    graphs = (GraphedCall.captures - graphs[0], GraphedCall.replays - graphs[1])
+    if graphs != (1, 999):
+        raise RuntimeError(f"graphed sampling: {graphs} captures and replays, want (1, 999)")
+    eager, dt_eager = run(mdm)
+    if not torch.equal(lat, eager):
+        raise RuntimeError(f"graphed vs eager latents: max abs {float((lat - eager).abs().max())}")
+    log(f"[sample] 1000 DDPM steps, B=2, full-width MDM: graphed {dt:.2f}s (1 capture, 999 "
+        f"replays), eager {dt_eager:.2f}s, bit-equal, K2 launches 16000 each, "
         f"latent std {float(lat.std()):.3f}")
-    return {"sample_s": dt}
+    return {"sample_s": dt, "sample_eager_s": dt_eager}
 
 
 def _device_us(evt) -> float:
@@ -924,9 +947,10 @@ def _profiled(label, fn, steps=None, named=()):
 
 def phase_profile(dev):
     """Where the time goes (not part of the default run): 20 DDPM steps of
-    the full-width MDM at B = 2, and one 256^3 sheet extraction."""
+    the full-width MDM at B = 2, eager and through make_cfg_model_fn's CUDA
+    graph, and one 256^3 sheet extraction."""
     from surfd_tpu_torch.diffusion import named_schedule, p_sample
-    from surfd_tpu_torch.models import MDM
+    from surfd_tpu_torch.models import MDM, make_cfg_model_fn
     from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf, make_udf_fn
 
     mdm = MDM(cond_mode="no_cond")
@@ -936,15 +960,17 @@ def phase_profile(dev):
     g = torch.Generator(device=dev).manual_seed(10)
     x = torch.randn((2, 32, 1), generator=g, device=dev)
 
-    def steps(n, x=x):
+    def steps(n, model_fn, x=x):
         with torch.no_grad():
             for t in range(999, 999 - n, -1):
-                x, _ = p_sample(sched, mdm, x, t, torch.randn(x.shape, generator=g, device=dev),
-                                clip_denoised=False)
+                x, _ = p_sample(sched, model_fn, x, t,
+                                torch.randn(x.shape, generator=g, device=dev), clip_denoised=False)
         return x
 
-    steps(5)  # warm up
-    _profiled("sample, 20 DDPM steps", lambda: steps(20), steps=20)
+    graphed = make_cfg_model_fn(mdm, 1.0)
+    for label, model_fn in (("eager", mdm), ("graphed", graphed)):
+        steps(5, model_fn)  # warm up (the graph's capture)
+        _profiled(f"sample, 20 DDPM steps, {label}", lambda: steps(20, model_fn), steps=20)
     dec, fx = load_fixture_decoder(dev)
     udf_fn = make_udf_fn(dec, None, torch.from_numpy(fx["latent"]), fx["max_dist"], device=dev)
     cfg = MeshExtractionConfig(resolution=256, surface_bias="auto")

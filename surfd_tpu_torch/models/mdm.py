@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.cuda_graph import GraphedCall
 from .unet1d import UNet1D
 
 COND_MODES = ("no_cond", "text", "sketch", "img", "category")
@@ -82,13 +83,16 @@ class MDM(nn.Module):
 
 def make_cfg_model_fn(model: MDM, guidance_scale: float, *, context=None, action=None):
     """A guided `model_fn(x, t)` for the samplers: the conditional and the
-    unconditional branch run as one batched pass of 2B."""
+    unconditional branch run as one batched pass of 2B. On CUDA with grad
+    off it is replayed from a CUDA graph captured at its first call
+    (`ops.cuda_graph.GraphedCall`, whose `fn` is the eager function); the
+    CPU, a call under grad and the model in train mode run it eagerly."""
 
     def cond_fn(x, t):
         return model(x, t, context=context, action=action)
 
     if guidance_scale == 1.0:
-        return cond_fn
+        return GraphedCall(cond_fn, model)
 
     if model.cond_mode in CONTEXT_MODES:
         def guided(x, t):
@@ -97,7 +101,7 @@ def make_cfg_model_fn(model: MDM, guidance_scale: float, *, context=None, action
             out_cond, out_uncond = out.chunk(2, dim=0)
             return out_uncond + guidance_scale * (out_cond - out_uncond)
 
-        return guided
+        return GraphedCall(guided, model)
 
     if model.cond_mode == "category":
         def guided(x, t):
@@ -106,6 +110,6 @@ def make_cfg_model_fn(model: MDM, guidance_scale: float, *, context=None, action
             out_cond, out_uncond = out.chunk(2, dim=0)
             return out_uncond + guidance_scale * (out_cond - out_uncond)
 
-        return guided
+        return GraphedCall(guided, model)
 
-    return cond_fn
+    return GraphedCall(cond_fn, model)
