@@ -27,12 +27,19 @@ Phases, each fatal on failure:
      sheet's finalized 256^3 mesh against numpy's pass (max abs <= 1e-6,
      two calls bit-equal), timed beside its bound in bytes, the plain
      version, three index_add_ passes, numpy on the host and the whole
-     call from and back to the host;
+     call from and back to the host; the denoiser's convolutions at the
+     full-width MDM's 39 shapes at B 2, latent 32 against conv1d_ref (max
+     abs <= CONV_BAR of max |plain|, two launches bit-equal), and each
+     (K, stride) group of one denoiser call's 98, and the whole call,
+     captured as CUDA graphs and timed beside the weight-read bound, the
+     plain version (cuDNN's default algorithms), cuDNN autotuned and the
+     input unfolded into a cuBLAS GEMM;
   3. sampling: 1000 DDPM steps of the full-width MDM (random weights from a
      seed), B = 2, through make_cfg_model_fn (the CLIs' path: one CUDA graph
      captured, 999 replays), then eagerly through the MDM itself, in that
-     order — each run K2 16 x 1000 launches by the replay-aware counter,
-     the two runs' latents bit-equal, both walls logged;
+     order — each run K2 16 x 1000 and the conv kernel 98 x 1000 launches by
+     the replay-aware counters, the two runs' latents bit-equal, both walls
+     logged;
   4. extraction: the shipped trained sheet decoder at 256^3 with
      surface_bias="auto" through get_mesh_from_udf — the JAX package's bars
      (tests/test_e2e_fixture.py), the face count within 1 % of the JAX
@@ -139,7 +146,8 @@ Phases, each fatal on failure:
      7 launches a step, the guidance gradient through K2-bwd; the
      classifier's attention output detached, a planted fault, must fail);
      the spatial-transformer UNet and the grid AE against the CPU run
-     (VESTIGIAL_BARS; TF32 on must fail them; no hand-written kernel);
+     (VESTIGIAL_BARS; TF32 on must fail them; no hand-written kernel but the
+     conv kernel, once for each of the UNet's convolutions);
   11. K2's wrapper: host clock per call over 10,000 back-to-back calls, in
      turns with SDPA's;
   12. the generation CLIs write OBJs, all three at once: generate_uncond (DDPM), generate_cat
@@ -235,6 +243,12 @@ K2_BWD_EDGE = ((1, 28), (3, 112), (17, 56), (33, 28), (63, 28))
 # K2-bwd against qkv_attention_bwd_ref: max abs error over max(1, max |ref|).
 # PERF.md gives the readings, sound and with planted faults, it was set from.
 K2_BWD_BAR = 2e-5
+CONV_SRC = "surfd_tpu_torch/ops/csrc/conv1d_stream.cu"
+CONV_TPU = ("none: the JAX package left the denoiser's convolutions to XLA "
+            "(flax nn.Conv in surfd_tpu/models/unet1d.py)")
+# The conv kernel against conv1d_ref (cuDNN in f32): max abs error over max
+# |plain|. f32 sums of up to 5,376 terms in another order read ~1e-7.
+CONV_BAR = 1e-5
 LAP_SRC = "surfd_tpu_torch/ops/csrc/mesh_laplacian.cu"
 LAP_TPU = ("none: the JAX package smooths in float64 numpy "
            "(surfd_tpu/geometry/mesh_ops.py:184-200, laplacian_smooth)")
@@ -510,7 +524,173 @@ def phase_kernels(dev, hgmma=None):
                 f"SDPA {lib_ms * 1e3:.2f} us bound {b_ms * 1e3:.3f} us ({b_by})")
     rows += kernels_bwd(dev, k2_calls)
     rows.append(kernels_laplacian(dev))
+    rows += kernels_conv1d(dev)
     return rows, k2_calls
+
+
+def _graph_of(fn, sites):
+    """fn(*site) for every site, in order, captured as one CUDA graph after
+    two warm-up passes on a side stream (cuDNN's autotuner, where on, picks
+    its algorithms there). Returns the graph; its outputs stay alive with it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            for site in sites:
+                fn(*site)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graph.outs = [fn(*site) for site in sites]
+    return graph
+
+
+def _unfold_cublas(x, w, b, stride, pad):
+    """The conv as the input unfolded (pad, unfold) and one cuBLAS f32 GEMM."""
+    B, cin, _ = x.shape
+    cout, _, k = w.shape
+    cols = torch.nn.functional.pad(x, (pad, pad)).unfold(2, k, stride)  # (B, Cin, Lout, K)
+    lout = cols.shape[2]
+    cols = cols.permute(0, 2, 1, 3).reshape(B * lout, cin * k)
+    out = torch.addmm(b, cols, w.reshape(cout, cin * k).t())
+    return out.reshape(B, lout, cout).permute(0, 2, 1)
+
+
+def kernels_conv1d(dev) -> list:
+    """The denoiser's 98 convolutions at cell 1's shapes: the full-width
+    category MDM (seeded weights) at B 2, latent 32, each conv's input read
+    by a forward hook on the card. At each of the 39 distinct shapes the
+    kernel against conv1d_ref (F.conv1d: cuDNN's default algorithms in f32,
+    what the port ran before), max abs error over max |plain| <= CONV_BAR,
+    two launches bit-equal. Then each (K, stride) group of one call's
+    convolutions, in the call's order, and the whole call, each captured as
+    a CUDA graph and timed by CUDA events over replays: the kernel, the plain
+    version, and two library yardsticks that the port does not call — cuDNN
+    autotuned (torch.backends.cudnn.benchmark) and the input unfolded into a
+    cuBLAS f32 GEMM — beside the bound, the weight bytes at 3.35 TB/s (the
+    group's 124 M weights do not fit the 50 MB L2: every replay reads them
+    from HBM). The kernel's device time per site from a profiled replay is
+    logged where the profiler records every launch. One row per group."""
+    from surfd_tpu_torch.ops import conv1d_kernel as ck
+
+    mdm = category_mdm().to(dev)
+    sites = []
+
+    def hook(mod, inp, out):
+        sites.append((inp[0].clone(), mod.weight, mod.bias, mod.stride[0], mod.padding[0]))
+
+    convs = [m for m in mdm.modules() if isinstance(m, torch.nn.Conv1d)]
+    handles = [m.register_forward_hook(hook) for m in convs]
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, 32, 1)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        mdm(x, torch.tensor([3, 700], device=dev), action=category_actions(dev))
+    for h in handles:
+        h.remove()
+    if len(sites) != 98:
+        raise RuntimeError(f"the MDM ran {len(sites)} convolutions, want 98")
+
+    def shape(site):
+        x, w, _, stride, _ = site
+        return (w.shape[1], w.shape[0], w.shape[2], stride, x.shape[0] * (x.shape[2] // stride))
+
+    errs, seen = {}, set()
+    with torch.no_grad():
+        for site in sites:
+            if shape(site) in seen:
+                continue
+            seen.add(shape(site))
+            got, again, want = ck.conv1d(*site), ck.conv1d(*site), ck.conv1d_ref(*site)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise RuntimeError(f"conv1d {shape(site)}: two launches differ")
+            errs[shape(site)] = float((got - want).abs().max()) / float(want.abs().max())
+    over = {k: v for k, v in errs.items() if not v <= CONV_BAR}
+    if len(errs) != 39 or over:
+        raise RuntimeError(f"conv1d: {len(errs)} shapes, over the bar {CONV_BAR}: {over}")
+    worst = max(errs, key=errs.get)
+    log(f"[kernels] conv1d: 39 shapes of the MDM at B 2 latent 32 against conv1d_ref: max "
+        f"err/max|ref| {errs[worst]:.3g} at (Cin, Cout, K, s, M) {worst} (bar {CONV_BAR:g}), "
+        f"two launches bit-equal at each")
+
+    groups = {(3, 1): [], (3, 2): [], (1, 1): []}
+    for site in sites:
+        groups[site[1].shape[2], site[3]].append(site)
+    rows, whole = [], {}
+    with torch.no_grad():
+        for key, group in [*groups.items(), ("call", sites)]:
+            nbytes = sum(4.0 * s[1].numel() for s in group)
+            graphs = [_graph_of(ck.conv1d, group), _graph_of(torch.nn.functional.conv1d, group)]
+            torch.backends.cudnn.benchmark = True
+            try:
+                graphs.append(_graph_of(torch.nn.functional.conv1d, group))
+            finally:
+                torch.backends.cudnn.benchmark = False
+            graphs.append(_graph_of(_unfold_cublas, group))
+            ms, plain_ms, tuned_ms, unfold_ms = time_ms_turns([g.replay for g in graphs], reps=20)
+            b_ms, b_by = bound(nbytes, 2.0 * sum(s[1].numel() * s[0].shape[0] * s[0].shape[2]
+                                                 // s[3] for s in group), "f32")
+            reading = {"ms": ms, "plain_ms": plain_ms, "library_ms": tuned_ms,
+                       "unfold_cublas_ms": unfold_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "weight_mb": nbytes / 1e6, "convs": len(group)}
+            label = "the whole call" if key == "call" else f"k{key[0]} s{key[1]}"
+            log(f"[kernels] conv1d {label}: {len(group)} convs, {nbytes / 1e6:.1f} MB of weights, "
+                f"graphed: kernel {ms:.4f} ms plain (cuDNN default) {plain_ms:.4f} ms cuDNN "
+                f"autotuned {tuned_ms:.4f} ms unfold+cuBLAS {unfold_ms:.4f} ms bound "
+                f"{b_ms:.4f} ms ({b_by}); kernel at {b_ms / ms:.1%} of the bound")
+            if key == "call":
+                whole, kernel_graph = reading, graphs[0]
+                continue
+            rows.append({
+                "name": f"conv1d_k{key[0]}_s{key[1]}", "route": "cuda", "source": CONV_SRC,
+                "replaces": CONV_TPU, "launches": 0,
+                "max_abs_err": max(errs[shape(s)] for s in group), **reading,
+                "shape": f"the {len(group)} k{key[0]} s{key[1]} convolutions of one denoiser "
+                         "call, B 2, latent 32 (graphed)",
+            })
+            del graphs
+    for row in rows:
+        row["whole_call"] = whole
+    conv1d_site_times(kernel_graph, sites, shape)
+    return rows
+
+
+def conv1d_site_times(graph, sites, shape) -> None:
+    """The conv kernel's device time at each distinct shape, from three
+    profiled replays of the whole call's graph (its launches in the call's
+    order), beside each shape's weight-read bound; logged only, and skipped
+    where the profiler dropped launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kern = sorted((e for e in events if e.get("cat") == "kernel"
+                   and "conv1d_stream" in e.get("name", "")), key=lambda e: e["ts"])
+    if len(kern) != 3 * len(sites):
+        log(f"[kernels] conv1d per shape: the profiler recorded {len(kern)} of "
+            f"{3 * len(sites)} launches; not read")
+        return
+    by_shape = {}
+    for i, e in enumerate(kern):
+        by_shape.setdefault(shape(sites[i % len(sites)]), []).append(float(e["dur"]))
+    total = sum(float(e["dur"]) for e in kern) / 3
+    log(f"[kernels] conv1d per shape (Cin, Cout, K, s, M): device us median, bound us, "
+        f"ratio; the call's kernels {total:.1f} us of device time")
+    for key, durs in by_shape.items():
+        cin, cout, k, _, _ = key
+        b_us = 4.0 * cin * cout * k / HBM_BPS * 1e6
+        med = statistics.median(durs)
+        log(f"[kernels]   {key}: {med:.2f} us, bound {b_us:.2f} us, {med / b_us:.2f}x "
+            f"({len(durs) // 3} sites)")
 
 
 def kernels_laplacian(dev, iterations: int = 3) -> dict:
@@ -796,6 +976,7 @@ _CHILD_LOCK = threading.Lock()  # run_clis adds from several threads
 def reset_counts():
     from surfd_tpu_torch.ops import GraphedCall
     from surfd_tpu_torch.ops import attention_kernel as ak
+    from surfd_tpu_torch.ops import conv1d_kernel as ck
     from surfd_tpu_torch.ops import decoder_kernel as dk
     from surfd_tpu_torch.ops import mesh_laplacian as ml
 
@@ -809,6 +990,8 @@ def reset_counts():
     ak.qkv_attention_bwd_ref.calls = 0
     ml.laplacian_smooth.launches = 0
     ml.laplacian_smooth_ref.calls = 0
+    ck.conv1d.launches.clear()
+    ck.conv1d_ref.calls = 0
     GraphedCall.captures = GraphedCall.replays = 0
 
 
@@ -863,6 +1046,7 @@ def phase_sample(dev):
     from surfd_tpu_torch.models import MDM, make_cfg_model_fn
     from surfd_tpu_torch.ops import GraphedCall
     from surfd_tpu_torch.ops import attention_kernel as ak
+    from surfd_tpu_torch.ops import conv1d_kernel as ck
     from surfd_tpu_torch.pipelines import sample_latents
 
     mdm = MDM(cond_mode="no_cond")
@@ -872,6 +1056,7 @@ def phase_sample(dev):
 
     def run(model_fn):
         before = sum(ak.qkv_attention.launches.values())
+        convs = dict(ck.conv1d.launches)
         g = torch.Generator(device=dev).manual_seed(10)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -879,10 +1064,13 @@ def phase_sample(dev):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         n = sum(ak.qkv_attention.launches.values()) - before
+        n_conv = {k: v - convs.get(k, 0) for k, v in ck.conv1d.launches.items()}
         if tuple(lat.shape) != (2, 32) or not bool(torch.isfinite(lat).all()):
             raise RuntimeError(f"latents bad: shape {tuple(lat.shape)}")
         if n != 16 * 1000:
             raise RuntimeError(f"K2 launched {n} times in sampling, want 16000")
+        if n_conv != {(3, 1): 49000, (3, 2): 3000, (1, 1): 46000}:
+            raise RuntimeError(f"conv1d launched {n_conv} in sampling, want 98 a step")
         return lat, dt
 
     graphs = (GraphedCall.captures, GraphedCall.replays)
@@ -894,7 +1082,7 @@ def phase_sample(dev):
     if not torch.equal(lat, eager):
         raise RuntimeError(f"graphed vs eager latents: max abs {float((lat - eager).abs().max())}")
     log(f"[sample] 1000 DDPM steps, B=2, full-width MDM: graphed {dt:.2f}s (1 capture, 999 "
-        f"replays), eager {dt_eager:.2f}s, bit-equal, K2 launches 16000 each, "
+        f"replays), eager {dt_eager:.2f}s, bit-equal, K2 launches 16000 and conv1d 98000 each, "
         f"latent std {float(lat.std()):.3f}")
     return {"sample_s": dt, "sample_eager_s": dt_eager}
 
@@ -3337,12 +3525,18 @@ def phase_parallel(dev, ref):
                            f"{k1[1] - k0[1]}; want {GUIDE_K2 * n_steps}, {GUIDE_K2_BWD * n_steps}")
     del mdm, clf
 
-    # (f) the spatial-transformer UNet and the grid AE
+    # (f) the spatial-transformer UNet and the grid AE: no hand-written kernel
+    # but the conv kernel, once for each of the UNet's convolutions
     unet, ae, inp = vestigial_models()
     before = launch_counts()
     got = vestigial_run(unet, ae, inp, dev)
-    if launch_counts() != before:
-        raise RuntimeError("parallel: (f) launched a hand-written kernel")
+    after = launch_counts()
+    launched = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+    n_convs = sum(isinstance(m, unet1d.Conv1d) for m in unet.modules())
+    if (any(not k.startswith("conv1d_") for k in launched)
+            or sum(launched.values()) != n_convs):
+        raise RuntimeError(f"parallel: (f) launched {launched}; want only the conv kernel, "
+                           f"{n_convs} times")
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
         tf32 = vestigial_run(unet, ae, inp, dev)
@@ -3353,7 +3547,8 @@ def phase_parallel(dev, ref):
     faults = {k: _rel_gap(tf32[k], want[k]) for k in want}
     out["vestigial"] = {"gaps": gaps, "tf32": faults}
     log(f"[parallel] (f) card vs CPU, max abs / max(1, max |CPU|): {json.dumps(gaps)}; TF32 on: "
-        f"{json.dumps(faults)} (bars {json.dumps(VESTIGIAL_BARS)}); no hand-written kernel")
+        f"{json.dumps(faults)} (bars {json.dumps(VESTIGIAL_BARS)}); hand-written kernels: "
+        f"the conv kernel {sum(launched.values())} times ({n_convs} convs), no other")
     for k, bar in VESTIGIAL_BARS.items():
         if gaps[k] > bar or not faults[k] > bar:
             raise RuntimeError(f"parallel: {k} off its bar, or the bar passes TF32")

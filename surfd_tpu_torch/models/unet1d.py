@@ -9,6 +9,10 @@ package's other settings are here too: `use_scale_shift_norm`,
 `use_remat` (each residual block recomputed in the backward pass) and
 `dtype` (the input rounded to it; the network runs in float32).
 
+Every convolution is `Conv1d` below: with grad off on a CUDA float32 input
+it runs the hand-written kernel `ops.conv1d_kernel.conv1d`, with grad on
+cuDNN, on the CPU the plain `F.conv1d`.
+
 Internally channel-first `(B, C, L)`, PyTorch's and the upstream Conv1d
 layout. Module names follow upstream (`time_embed`, `input_blocks`,
 `middle_block`, `output_blocks`, `out`, `label_emb`, `sketch_emb`), so an
@@ -26,8 +30,34 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention_kernel import qkv_attention
+from ..ops.conv1d_kernel import conv1d, conv1d_ref
 from .attention import SpatialTransformer1D
 from .layers import GroupNorm32, lecun_normal_, timestep_embedding
+
+
+class Conv1d(nn.Conv1d):
+    """`nn.Conv1d` (dilation 1, one group, zero padding) with the same
+    parameters and state-dict keys, whose forward routes by what it
+    observes: a CPU input takes the plain version `conv1d_ref` (`F.conv1d`,
+    the call nn.Conv1d makes); a CUDA input with grad off (sampling, a CUDA
+    graph's capture) the weight-streaming kernel `conv1d`, which raises on a
+    dtype or layout it does not take; a CUDA input with grad on (training,
+    a guidance gradient) cuDNN through nn.Conv1d, since the kernel has no
+    backward. `residual` (the block's skip path) is added to the output:
+    in the kernel's epilogue, else after the convolution; the same f32 sum
+    either way."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding)
+
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not x.is_cuda:
+            return conv1d_ref(x, self.weight, self.bias, self.stride[0], self.padding[0], residual)
+        if torch.is_grad_enabled():
+            out = super().forward(x)
+            return out if residual is None else out + residual
+        return conv1d(x, self.weight, self.bias, self.stride[0], self.padding[0], residual)
 
 
 class SeededDropout(nn.Module):
@@ -74,17 +104,17 @@ class ResBlock1D(nn.Module):
         self.use_remat = use_remat
         self.out_channels = out_channels
         self.in_layers = nn.Sequential(
-            GroupNorm32(channels), nn.SiLU(), nn.Conv1d(channels, out_channels, 3, padding=1)
+            GroupNorm32(channels), nn.SiLU(), Conv1d(channels, out_channels, 3, padding=1)
         )
         self.emb_layers = nn.Sequential(
             nn.SiLU(), nn.Linear(emb_channels, (2 if use_scale_shift_norm else 1) * out_channels))
         self.out_layers = nn.Sequential(
             GroupNorm32(out_channels), nn.SiLU(), SeededDropout(dropout),
-            nn.Conv1d(out_channels, out_channels, 3, padding=1),
+            Conv1d(out_channels, out_channels, 3, padding=1),
         )
         self.skip_connection = (
             nn.Identity() if channels == out_channels
-            else nn.Conv1d(channels, out_channels, 1)
+            else Conv1d(channels, out_channels, 1)
         )
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -107,7 +137,7 @@ class ResBlock1D(nn.Module):
             h = norm(h) * (1 + scale) + shift
         else:
             h = norm(h + e)
-        return self.skip_connection(x) + conv(drop(act(h), keep))
+        return conv(drop(act(h), keep), residual=self.skip_connection(x))
 
 
 class AttentionBlock1D(nn.Module):
@@ -117,14 +147,14 @@ class AttentionBlock1D(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.norm = GroupNorm32(channels)
-        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
-        self.proj_out = nn.Conv1d(channels, channels, 1)
+        self.qkv = Conv1d(channels, 3 * channels, 1)
+        self.proj_out = Conv1d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # K2 reads the convolution's (B, 3·H·c, T) output as a (B, T, 3·H·c)
         # view and writes a (B, H·c, T) tensor for proj_out: no copy either side
         h = qkv_attention(self.qkv(self.norm(x)).transpose(1, 2), self.num_heads).transpose(1, 2)
-        return x + self.proj_out(h)
+        return self.proj_out(h, residual=x)
 
 
 class Downsample1D(nn.Module):
@@ -133,7 +163,7 @@ class Downsample1D(nn.Module):
 
     def __init__(self, channels: int, use_conv: bool = True):
         super().__init__()
-        self.op = (nn.Conv1d(channels, channels, 3, stride=2, padding=1) if use_conv
+        self.op = (Conv1d(channels, channels, 3, stride=2, padding=1) if use_conv
                    else nn.AvgPool1d(2, 2))
 
     def forward(self, x):
@@ -146,7 +176,7 @@ class Upsample1D(nn.Module):
     def __init__(self, channels: int, use_conv: bool = True):
         super().__init__()
         if use_conv:
-            self.conv = nn.Conv1d(channels, channels, 3, padding=1)
+            self.conv = Conv1d(channels, channels, 3, padding=1)
 
     def forward(self, x):
         x = F.interpolate(x, scale_factor=2, mode="nearest")
@@ -230,7 +260,7 @@ class UNet1D(nn.Module):
         chans = [mc]
         ds = 1
         self.input_blocks = nn.ModuleList(
-            [TimestepSequential(nn.Conv1d(in_channels, mc, 3, padding=1))]
+            [TimestepSequential(Conv1d(in_channels, mc, 3, padding=1))]
         )
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
@@ -257,7 +287,7 @@ class UNet1D(nn.Module):
                     ds //= 2
                 self.output_blocks.append(TimestepSequential(*layers))
         self.out = nn.Sequential(
-            GroupNorm32(ch), nn.SiLU(), nn.Conv1d(mc, out_channels, 3, padding=1)
+            GroupNorm32(ch), nn.SiLU(), Conv1d(mc, out_channels, 3, padding=1)
         )
         self.eval()
 

@@ -106,6 +106,10 @@ def load() -> ctypes.CDLL:
             # qkv, dO, dqkv, B, T, H, C, scale, the three tensors' strides, stream
             lib.surfd_qkv_attention_bwd.argtypes = ([vp, vp, vp, i32, i32, i32, i32, f32]
                                                     + [i64] * 9 + [vp])
+            lib.surfd_conv1d_stream.restype = i32
+            # x, weight, bias, residual, out, B, Cin, Lin, Cout, Lout, K, stride,
+            # padding, the plan (tm, lm, wr, splits, kc), vec, stream
+            lib.surfd_conv1d_stream.argtypes = [vp] * 5 + [i32] * 14 + [vp]
             lib.surfd_mesh_laplacian.restype = i32
             # vertices, faces, V, F, iterations, lam, out, fi, cnt, off, tile_sums,
             # corners, buf0, buf1, bad, stream

@@ -5,7 +5,7 @@ about 585 kernel launches of a few microseconds of device work each: eager,
 the host's launches take longer than the card's work. `GraphedCall` wraps
 such a call. On CUDA, with grad off and the module in eval mode, its first
 call runs `fn` eagerly on a side stream (that call's result, and the warm-up
-that initialises cuDNN's plans and K2's library for the stream), then
+that initialises cuBLAS's workspace and the kernels' library for the stream), then
 captures `fn` on that stream into a CUDA graph with its own memory pool,
 reading static copies of `x` and `t`. Every later call copies `x` and `t`
 into those buffers, replays the graph on the current stream and returns a
@@ -36,13 +36,14 @@ import torch
 
 from ..utils.profiling import span
 from .attention_kernel import qkv_attention, qkv_attention_bwd
+from .conv1d_kernel import conv1d
 from .decoder_kernel import folded_udf
 
 
 def _counters() -> tuple:
     """The launch counters a captured call can move (per-shape dicts). The
     Laplacian's reads a flag back on the host, so it cannot be captured."""
-    return folded_udf.launches, qkv_attention.launches, qkv_attention_bwd.launches
+    return folded_udf.launches, qkv_attention.launches, qkv_attention_bwd.launches, conv1d.launches
 
 
 _side: dict = {}  # device -> the stream every capture on it runs on

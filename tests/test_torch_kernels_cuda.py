@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
-only torch, numpy and the port, so it runs where JAX is not installed:
+only torch, numpy, the port and the conv shape table of
+tests/test_torch_conv1d.py, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
@@ -17,6 +18,8 @@ from surfd_tpu_torch.models import MDM, CbnDecoder
 from surfd_tpu_torch.ops import attention_kernel as ak
 from surfd_tpu_torch.ops import decoder_kernel as dk
 from surfd_tpu_torch.utils.convert import load_sheet_fixture, strip_prefix
+from test_torch_conv1d import SHAPES as CONV_SHAPES
+from test_torch_conv1d import _inputs as conv_inputs
 
 MAX_DIST = 0.1
 HEADS = 8
@@ -736,3 +739,161 @@ def test_extraction_on_card_runs_the_laplacian_kernel(sheet_256):
     assert stats["final_faces"] == len(want.faces)
     np.testing.assert_array_equal(got.faces, want.faces)
     assert np.abs(got.vertices.astype(np.float64) - want.vertices).max() <= LAPLACIAN_ATOL
+
+
+# The denoiser's convolutions (ops/csrc/conv1d_stream.cu) against conv1d_ref,
+# F.conv1d in f32 (TF32 off): max abs error over max |plain|.
+CONV_BAR = 1e-5
+
+
+def _conv_on_card(shape, batch, cuda, seed=0):
+    x, w, b, stride, pad = conv_inputs(shape, batch, seed)
+    return x.to(cuda), w.to(cuda), b.to(cuda), stride, pad
+
+
+def _conv_err(got, want) -> float:
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ((2, 1), (4, 2)), ids=("b2_latent32", "b4_latent64"))
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv1d_matches_plain(cuda, shape, batch, record_property):
+    """The kernel at each of the full-width MDM's 39 conv shapes, at B 2
+    latent 32 and at B 4 latent 64 (the text path's CFG, M up to 256),
+    against conv1d_ref; two launches bit-equal, each counted."""
+    from surfd_tpu_torch.ops import conv1d_kernel as ck
+
+    x, w, b, stride, pad = _conv_on_card(shape, batch, cuda)
+    key = (w.shape[2], stride)
+    before = ck.conv1d.launches.get(key, 0)
+    with torch.no_grad():
+        got, again = ck.conv1d(x, w, b, stride, pad), ck.conv1d(x, w, b, stride, pad)
+        want = ck.conv1d_ref(x, w, b, stride, pad)
+    torch.cuda.synchronize()
+    assert ck.conv1d.launches[key] == before + 2
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, again)
+    err = _conv_err(got, want)
+    record_property("err", err)
+    assert err <= CONV_BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged rows and columns", "one input channel",
+                                  "odd length, stride 2", "M past 64, three column tiles",
+                                  "no bias", "weight rows not 16-byte aligned", "residual"])
+def test_conv1d_edges_match_plain(cuda, case):
+    """Shapes and layouts off the MDM's: Cout not a multiple of a tile, Cin
+    1 (rows of 3 weights), an odd input length under stride 2, M 136 in
+    column tiles of 64, no bias, a weight whose rows start off a 16-byte
+    boundary (the scalar loads); and a residual added in the epilogue, bit
+    for bit the unfused kernel's output plus the residual."""
+    from surfd_tpu_torch.ops import conv1d_kernel as ck
+
+    cin, cout, k, stride, B, lin = {
+        "ragged rows and columns": (96, 37, 3, 1, 3, 5),
+        "one input channel": (1, 224, 3, 1, 2, 32),
+        "odd length, stride 2": (224, 224, 3, 2, 2, 17),
+        "M past 64, three column tiles": (224, 40, 1, 1, 4, 34),
+        "no bias": (448, 448, 1, 1, 2, 16),
+        "weight rows not 16-byte aligned": (96, 64, 3, 1, 2, 8),
+        "residual": (224, 40, 3, 1, 3, 34),
+    }[case]
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(B, cin, lin, generator=g).to(cuda)
+    w = torch.randn(cout, cin, k, generator=g).to(cuda)
+    b = None if case == "no bias" else torch.randn(cout, generator=g).to(cuda)
+    if case == "weight rows not 16-byte aligned":
+        w = torch.cat([torch.zeros(1, device=cuda), w.flatten()])[1:].view(cout, cin, k)
+        assert w.data_ptr() % 16 != 0
+    with torch.no_grad():
+        got = ck.conv1d(x, w, b, stride, k // 2)
+        want = ck.conv1d_ref(x, w, b, stride, k // 2)
+        if case == "residual":
+            res = torch.randn(got.shape, generator=g).to(cuda)
+            fused = ck.conv1d(x, w, b, stride, k // 2, res)
+            assert torch.equal(fused, got + res)
+            assert _conv_err(fused, ck.conv1d_ref(x, w, b, stride, k // 2, res)) <= CONV_BAR
+    torch.cuda.synchronize()
+    assert _conv_err(got, want) <= CONV_BAR
+
+
+@pytest.mark.cuda
+def test_conv1d_runs_on_the_current_stream(cuda):
+    """Launched inside torch.cuda.stream(s) while the default stream is held
+    busy, the conv kernel runs on s."""
+    from surfd_tpu_torch.ops import conv1d_kernel as ck
+
+    x, w, b, stride, pad = _conv_on_card((896, 896, 3, 1, 4), (2, 1), cuda)
+    with torch.no_grad():
+        want = ck.conv1d_ref(x, w, b, stride, pad)
+        torch.cuda.synchronize()
+        s = torch.cuda.Stream()
+        torch.cuda._sleep(50_000_000)
+        with torch.cuda.stream(s):
+            err = (ck.conv1d(x, w, b, stride, pad) - want).abs().max() / want.abs().max()
+            s.synchronize()
+            assert float(err) <= CONV_BAR
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_conv1d_rejects_bad_input(cuda):
+    """Another dtype, a strided input, K 5, and a call autograd would record
+    raise; the routing Conv1d with grad on goes to cuDNN (no launch) and has
+    a gradient."""
+    from surfd_tpu_torch.models.unet1d import Conv1d
+    from surfd_tpu_torch.ops import conv1d_kernel as ck
+
+    x = torch.randn(2, 8, 6, device=cuda)
+    w = torch.randn(4, 8, 3, device=cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            ck.conv1d(x.half(), w.half(), None, 1, 1)
+        with pytest.raises(ValueError):
+            ck.conv1d(x.transpose(1, 2).contiguous().transpose(1, 2)[:, :, :6], w, None, 1, 1)
+        with pytest.raises(ValueError):
+            ck.conv1d(x, torch.randn(4, 8, 5, device=cuda), None, 1, 2)
+    with pytest.raises(ValueError, match="no backward"):
+        ck.conv1d(x, w.requires_grad_(True), None, 1, 1)
+    conv = Conv1d(8, 4, 3, padding=1).to(cuda)
+    before = dict(ck.conv1d.launches)
+    xg = x.clone().requires_grad_(True)
+    conv(xg).square().sum().backward()
+    assert ck.conv1d.launches == before and xg.grad is not None
+    with torch.no_grad():
+        assert _conv_err(conv(x), ck.conv1d_ref(x, conv.weight, conv.bias, 1, 1)) <= CONV_BAR
+    assert ck.conv1d.launches[(3, 1)] == before.get((3, 1), 0) + 1
+
+
+@pytest.mark.cuda
+def test_graphed_denoiser_call_launches_98_convs_and_no_cudnn_conv(cuda):
+    """One graphed call of the full-width category MDM at B 2, latent 32
+    (cell 1's denoiser) counts 98 conv launches, 49 k3 s1, 3 k3 s2 and 46 k1
+    s1; a profiled replay runs the conv kernel and no cuDNN convolution
+    (implicit GEMM / fprop); its output equals the eager call's bits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from surfd_tpu_torch.models import make_cfg_model_fn
+    from surfd_tpu_torch.ops import conv1d_kernel as ck
+
+    mdm = MDM(cond_mode="category", num_actions=9)
+    mdm.Unet.random_init_(torch.Generator().manual_seed(0))
+    mdm = mdm.to(cuda).eval()
+    fn = make_cfg_model_fn(mdm, 1.0, action=torch.tensor([1, 4], device=cuda))
+    x = torch.randn(2, 32, 1, generator=torch.Generator().manual_seed(6)).to(cuda)
+    t = torch.tensor([999, 998], device=cuda)
+    with torch.no_grad():
+        eager = fn(x, t)  # the capture
+        before = dict(ck.conv1d.launches)
+        got = fn(x, t)
+        launched = {k: n - before.get(k, 0) for k, n in ck.conv1d.launches.items()}
+        assert launched == {(3, 1): 49, (3, 2): 3, (1, 1): 46}
+        assert torch.equal(got, eager)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(x, t)
+            torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert any("conv1d_stream" in n for n in names), names
+    assert not [n for n in names if "implicit_gemm" in n or "fprop" in n or "cudnn" in n]
