@@ -1199,19 +1199,20 @@ def phase_host(dev, calls: int = 10_000, rounds: int = 3):
 
 
 def blocking_stream():
-    """The synchronous grid-query stream in place of eval_in_chunks_async
-    for the block: each query is fetched as soon as it is started, as before
-    the overlap (test code, not a setting of the package)."""
+    """The synchronous grid-query stream in place of QueryStream.start for
+    the block: each query is fetched as soon as it is started, as before the
+    overlap (test code, not a setting of the package)."""
     from unittest import mock
 
-    from surfd_tpu_torch.geometry import eval_in_chunks
-    from surfd_tpu_torch.pipelines import generate
+    from surfd_tpu_torch.geometry import QueryStream
+    from surfd_tpu_torch.geometry.grid import to_device
 
-    def blocking(fn, pts, chunk, device=None, mesh=None):
-        res = eval_in_chunks(fn, pts, chunk, device=device, mesh=mesh)
+    def blocking(self, fn, pts):
+        pts = pts if torch.is_tensor(pts) else to_device(pts, self.device)
+        res = self.run(fn, pts).detach().cpu().numpy()
         return lambda: res
 
-    return mock.patch.object(generate, "eval_in_chunks_async", blocking)
+    return mock.patch.object(QueryStream, "start", blocking)
 
 
 # the stage times the overlap moves, logged side by side in phase extract
@@ -1290,12 +1291,13 @@ def gradient_query(udf_fn, dev, R: int = 256) -> dict:
     until its finalize returns (the fetch), in turns with the query's device
     time under torch.profiler (kernels and their count)."""
     from surfd_tpu_torch import native
-    from surfd_tpu_torch.geometry import GridFiller
+    from surfd_tpu_torch.geometry import GridFiller, QueryStream
 
     voxel = 2.0 / (R - 1)
-    grid = GridFiller(R, max_dist=udf_fn.max_dist, surface_bias="auto", device=dev).fill(udf_fn)
+    grid = GridFiller(R, max_dist=udf_fn.max_dist, surface_bias="auto",
+                      queries=QueryStream(dev)).fill(udf_fn)
     _, gids = native.mt_active_cubes(grid, 1.74 * voxel, 1.05 * voxel)
-    query = lambda: udf_fn.grad_i8_gid_async(gids, R, -1.0, voxel)
+    query = lambda: udf_fn.grad_i8_gid_async(gids, R, -1.0, voxel, udf_fn.queries)
     starts, fetches = [], []
     for _ in range(2):  # the extractions before warmed it
         torch.cuda.synchronize()
@@ -1389,7 +1391,11 @@ def settings_filters(udf_fn, dev, R: int = SETTINGS_R) -> dict:
     faces and 0.1 voxel of mean NN; filter_faces_by_udf, then the vertex
     merge, on the raw mesh gives the mesh of the program's unquantised filter
     without cleanup (its unreferenced vertices aside)."""
-    from surfd_tpu_torch.geometry import merge_duplicate_vertices, remove_unreferenced_vertices
+    from surfd_tpu_torch.geometry import (
+        QueryStream,
+        merge_duplicate_vertices,
+        remove_unreferenced_vertices,
+    )
     from surfd_tpu_torch.pipelines import filter_faces_by_udf, make_field_bias_at
 
     voxel = 2.0 / (R - 1)
@@ -1426,7 +1432,7 @@ def settings_filters(udf_fn, dev, R: int = SETTINGS_R) -> dict:
         bias_at = None
         thr += 0.0 if field is not None else float(stats.get("surface_bias") or 0.0)
     t0 = time.perf_counter()
-    kept = filter_faces_by_udf(raw, udf_fn, thr, chunk=2**19, bias_at=bias_at)
+    kept = filter_faces_by_udf(raw, udf_fn, thr, QueryStream(dev), bias_at=bias_at)
     kept = merge_duplicate_vertices(remove_unreferenced_vertices(kept))
     dt = time.perf_counter() - t0
     # the program's merge may leave a vertex whose faces all collapsed
@@ -1451,7 +1457,7 @@ def settings_two_tier(udf_fn, dev) -> dict:
     from surfd_tpu_torch import native
     from surfd_tpu_torch.pipelines import BiasTable
 
-    band = udf_fn.two_tier_band()
+    band = udf_fn.two_tier_band(udf_fn.queries)
     for R in range(TIER_R, 7, -1):
         two, stats2, dt2, k2 = _extract(udf_fn, dev, resolution=R, surface_bias="auto")
         if stats2["ff_two_tier"]:
@@ -1511,6 +1517,7 @@ def settings_oracles(udf_fn, dev, R: int = ORACLE_R) -> dict:
     from surfd_tpu_torch import native
     from surfd_tpu_torch.geometry import (
         GridFiller,
+        QueryStream,
         chamfer_distance,
         hausdorff_distance,
         make_grad_fn,
@@ -1519,25 +1526,29 @@ def settings_oracles(udf_fn, dev, R: int = ORACLE_R) -> dict:
     )
     from surfd_tpu_torch.geometry.marching import int8_units, settled_int8_units
 
+    def dense_starter(g):  # a dense gradient array as marching's starter
+        flat = np.ascontiguousarray(g, dtype=np.float32).reshape(-1, 3)
+        return lambda gids: (lambda: flat[gids])
+
     voxel = 2.0 / (R - 1)
-    gf = GridFiller(R, max_dist=udf_fn.max_dist, surface_bias="auto", device=dev)
+    gf = GridFiller(R, max_dist=udf_fn.max_dist, surface_bias="auto", queries=QueryStream(dev))
     t0 = time.perf_counter()
     grid, stats = gf.fill(udf_fn, return_stats=True)
     dense = gf.fill_gradients(make_grad_fn(udf_fn), grid)
     g8 = settled_int8_units(dense)
     t1 = time.perf_counter()
-    m_np = marching_tetrahedra_udf(grid, g8, use_native=False)
+    m_np = marching_tetrahedra_udf(grid, dense_starter(g8), use_native=False)
     t2 = time.perf_counter()
-    m_cc = marching_tetrahedra_udf(grid, g8)
+    m_cc = marching_tetrahedra_udf(grid, dense_starter(g8))
     t3 = time.perf_counter()
-    lazy = lambda gids: udf_fn.grad_i8_gid(gids, R, -1.0, voxel)
-    lazy.by_gid = True
+    lazy = lambda gids: udf_fn.grad_i8_gid_async(gids, R, -1.0, voxel, udf_fn.queries)
     m_lazy = marching_tetrahedra_udf(grid, lazy, active_blocks=(stats["ab"], stats["block"]))
     t4 = time.perf_counter()
-    f_np = marching_tetrahedra_udf(grid, dense, use_native=False)
-    f_cc = marching_tetrahedra_udf(grid, dense)
+    f_np = marching_tetrahedra_udf(grid, dense_starter(dense), use_native=False)
+    f_cc = marching_tetrahedra_udf(grid, dense_starter(dense))
     t5 = time.perf_counter()
-    vgf = GridFiller(VOTE_R, max_dist=udf_fn.max_dist, surface_bias="auto", device=dev)
+    vgf = GridFiller(VOTE_R, max_dist=udf_fn.max_dist, surface_bias="auto",
+                     queries=QueryStream(dev))
     vgrid = vgf.fill(udf_fn)
     vdense = vgf.fill_gradients(make_grad_fn(udf_fn), vgrid)
     # the vote wants unit vectors toward the surface
@@ -1545,7 +1556,7 @@ def settings_oracles(udf_fn, dev, R: int = ORACLE_R) -> dict:
     m_vote = marching_tetrahedra_vote(vgrid, toward)
     t6 = time.perf_counter()
     _, corners = native.mt_active_cubes(grid, 1.74 * voxel, 1.05 * voxel)
-    differ = int((int8_units(dense.reshape(-1, 3)[corners]) != lazy(corners)).any(axis=1).sum())
+    differ = int((int8_units(dense.reshape(-1, 3)[corners]) != lazy(corners)()).any(axis=1).sum())
     hd_np = hausdorff_distance(m_np.vertices, m_cc.vertices)
     hd_lazy = hausdorff_distance(m_lazy.vertices, m_cc.vertices)
     f32_gap = abs(len(f_np.faces) - len(f_cc.faces)) / len(f_cc.faces)
@@ -1559,8 +1570,9 @@ def settings_oracles(udf_fn, dev, R: int = ORACLE_R) -> dict:
         f"({hd_f32 / voxel:.4g} voxel), {t5 - t4:.2f}s; {differ} of {len(corners)} corner "
         f"gradients round to another int8 on the dense and lazy routes")
     vvoxel = 2.0 / (VOTE_R - 1)
-    for name, m in (("numpy, float32", marching_tetrahedra_udf(vgrid, vdense, use_native=False)),
-                    ("native, float32", marching_tetrahedra_udf(vgrid, vdense))):
+    for name, m in (("numpy, float32",
+                     marching_tetrahedra_udf(vgrid, dense_starter(vdense), use_native=False)),
+                    ("native, float32", marching_tetrahedra_udf(vgrid, dense_starter(vdense)))):
         rms = float(np.sqrt(chamfer_distance(m_vote.vertices, m.vertices) / 2.0))
         hd = hausdorff_distance(m_vote.vertices, m.vertices)
         log(f"[settings] vote oracle at {VOTE_R}^3: {len(m_vote.faces)} faces ({t6 - t5:.2f}s) "

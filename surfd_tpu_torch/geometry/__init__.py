@@ -1,11 +1,10 @@
 from .analytic import FIXTURES, TorchField, sheet_fields, sphere_fields, torus_fields
 from .grid import (
     GridFiller,
+    QueryStream,
     auto_block_size,
     estimate_surface_bias,
     estimate_surface_bias_field,
-    eval_in_chunks,
-    eval_in_chunks_async,
     fill_grid_dense,
     make_grad_fn,
 )
@@ -38,8 +37,8 @@ from .vote_signs import marching_tetrahedra_vote, vote_sign_field
 
 __all__ = [
     "FIXTURES", "TorchField", "sheet_fields", "sphere_fields", "torus_fields",
-    "GridFiller", "auto_block_size", "estimate_surface_bias", "estimate_surface_bias_field",
-    "eval_in_chunks", "eval_in_chunks_async", "fill_grid_dense", "make_grad_fn",
+    "GridFiller", "QueryStream", "auto_block_size", "estimate_surface_bias",
+    "estimate_surface_bias_field", "fill_grid_dense", "make_grad_fn",
     "Mesh", "marching_tetrahedra", "marching_tetrahedra_udf",
     "read_obj", "write_obj", "write_ply",
     "boundary_vertices", "face_components", "fill_triangle_holes", "filter_small_components",

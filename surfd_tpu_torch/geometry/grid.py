@@ -10,7 +10,8 @@ The N³ vertex grid is cut into B³ blocks:
 Each level's test is sound by the triangle inequality (`auto_block_size`).
 Inactive regions keep max_dist. Vertex and sub-centre coordinates are
 generated on the device from the active-block ids; the work goes out in
-fixed-size chunks of `max_batch` points. The u16 fine values come back to
+fixed-size slices through a `QueryStream`, the one owner of the queries'
+device, slice size and data ranks. The u16 fine values come back to
 the host and the native scatter writes them into the grid, subtracting the
 surface-bias calibration on the way (float32 values: a numpy scatter).
 """
@@ -88,30 +89,6 @@ def estimate_surface_bias(block_min, spacing: float) -> float:
     return min(b, 3.0 * spacing)
 
 
-def _chunked(fn, x: torch.Tensor, chunk: int, mesh=None) -> torch.Tensor:
-    """fn over fixed-size slices of x's first axis, concatenated.
-
-    With `mesh` (a DeviceMesh with a 'data' axis), the list of slices is
-    split over the data ranks: the slice count is padded to a multiple of
-    the rank count, as the JAX package pads its slabs, each rank evaluates
-    its contiguous share on its own device, and the results are gathered
-    back to every rank in order. The slices are the unsharded ones, so the
-    result is the unsharded result exactly. Every data rank must make the
-    call, with the same x."""
-    if len(x) == 0:
-        return fn(x)
-    starts = range(0, len(x), chunk)
-    if mesh is None:
-        return torch.cat([fn(x[i:i + chunk]) for i in starts])
-    from ..parallel.mesh import all_gather_rows, data_axis
-
-    _, rank, n = data_axis(mesh)
-    per = -(-len(starts) // n)
-    mine = starts[rank * per:(rank + 1) * per]
-    out = torch.cat([fn(x[i:i + chunk]) for i in mine]) if len(mine) else fn(x[:0])
-    return all_gather_rows(mesh, out)
-
-
 def to_device(a, dev) -> torch.Tensor:
     """A host array on `dev`. On CUDA it is staged into pinned memory and
     uploaded with non_blocking: a copy from pageable memory would wait for
@@ -123,47 +100,81 @@ def to_device(a, dev) -> torch.Tensor:
     return host.pin_memory().to(dev, non_blocking=True)
 
 
-def eval_in_chunks_async(fn, pts, chunk: int, device=None, mesh=None):
-    """Start fn over (P, ...) points in slices of `chunk`; return a
-    finalize() that blocks until the result is on the host, as numpy.
+class QueryStream:
+    """How point queries run: on which device, in slices of how many rows,
+    over which data ranks. Every query of an extraction goes through one.
 
-    pts: a tensor, used where it lies, or a host array, moved to `device`,
-    else to fn's own `device` attribute, else to CUDA (never silently the
-    CPU). On CUDA the upload (`to_device`), the slices' kernels and the
-    download into a pinned host buffer are queued on the current stream
-    with an event behind them, and only finalize() waits, on that event: so
-    host work between the two overlaps the device's. Each call owns its
-    buffers and its event, so that calls from several threads on one stream
-    stay apart. On the CPU the result is computed at once. The JAX package
-    pads the slices to a power-of-two count, which bounds its compiled
-    executables; eager PyTorch compiles nothing, so the last slice here is
-    simply shorter. mesh: the slices are split over its 'data' ranks and
-    gathered (`_chunked`), which reads the row counts on the host, so the
-    dispatch blocks there; the result is the unsharded one.
+    device: where host points go (None: CUDA, which raises without a card:
+    never a silent CPU run). chunk: rows a slice. The JAX package pads its
+    slices to a power-of-two count, which bounds its compiled executables;
+    eager PyTorch compiles nothing, so the last slice here is simply
+    shorter. ranks: an optional DeviceMesh with a 'data' axis
+    (`parallel.make_mesh`): the slice count is padded to a multiple of the
+    rank count, as the JAX package pads its slabs, each rank evaluates its
+    contiguous share on its own device, and the results are gathered back
+    to every rank in order (`parallel.mesh.all_gather_rows`, which reads the
+    row counts on the host, so a sharded call blocks there). The slices are
+    the unsharded ones, so the result is the unsharded result exactly.
+    Every data rank must make every call, with the same points.
     """
-    if not torch.is_tensor(pts):
-        pts = to_device(pts, resolve_device(device if device is not None
-                                            else getattr(fn, "device", None)))
-    out = _chunked(fn, pts, chunk, mesh).detach()
-    if out.device.type != "cuda":
-        res = out.numpy()
-        return lambda: res
-    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    host.copy_(out, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
 
-    def finalize() -> np.ndarray:
-        done.synchronize()
-        return host.numpy()
+    def __init__(self, device=None, chunk: int = 2**19, ranks=None):
+        self.device = resolve_device(device)
+        self.chunk = chunk
+        self.ranks = ranks
 
-    return finalize
+    def sliced(self, chunk: int) -> QueryStream:
+        """The same device and ranks, in slices of `chunk` rows."""
+        return QueryStream(self.device, chunk, self.ranks)
 
+    def run(self, fn, x: torch.Tensor) -> torch.Tensor:
+        """fn over the slices of x's first axis, concatenated; x is used
+        where it lies."""
+        if len(x) == 0:
+            return fn(x)
+        starts = range(0, len(x), self.chunk)
+        if self.ranks is None:
+            return torch.cat([fn(x[i:i + self.chunk]) for i in starts])
+        from ..parallel.mesh import all_gather_rows, data_axis
 
-def eval_in_chunks(fn, pts, chunk: int, device=None, mesh=None) -> np.ndarray:
-    """fn over (P, ...) points in slices of `chunk`, returned as numpy:
-    `eval_in_chunks_async` waited on at once."""
-    return eval_in_chunks_async(fn, pts, chunk, device, mesh)()
+        _, rank, n = data_axis(self.ranks)
+        per = -(-len(starts) // n)
+        mine = starts[rank * per:(rank + 1) * per]
+        out = torch.cat([fn(x[i:i + self.chunk]) for i in mine]) if len(mine) else fn(x[:0])
+        return all_gather_rows(self.ranks, out)
+
+    def start(self, fn, pts):
+        """Start fn over (P, ...) points; return a finalize() that blocks
+        until the result is on the host, as numpy.
+
+        pts: a tensor, used where it lies, or a host array, uploaded to the
+        device (`to_device`). On CUDA the upload, the slices' kernels and
+        the download into a pinned host buffer are queued on the current
+        stream with an event behind them, and only finalize() waits, on
+        that event: so host work between the two overlaps the device's.
+        Each call owns its buffers and its event, so that calls from several
+        threads on one stream stay apart. On the CPU the result is computed
+        at once."""
+        if not torch.is_tensor(pts):
+            pts = to_device(pts, self.device)
+        out = self.run(fn, pts).detach()
+        if out.device.type != "cuda":
+            res = out.numpy()
+            return lambda: res
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+
+        def finalize() -> np.ndarray:
+            done.synchronize()
+            return host.numpy()
+
+        return finalize
+
+    def fetch(self, fn, pts) -> np.ndarray:
+        """fn over (P, ...) points as numpy: `start` waited on at once."""
+        return self.start(fn, pts)()
 
 
 GRAD_CHUNK = 2**16  # points per backward pass: it keeps every activation
@@ -185,33 +196,31 @@ def make_grad_fn(udf_fn, chunk: int = GRAD_CHUNK) -> GradFn:
         return g
 
     def grad_fn(pts: torch.Tensor) -> torch.Tensor:
-        return _chunked(one, pts, chunk)
+        return QueryStream(pts.device, chunk).run(one, pts)
 
-    grad_fn.device = getattr(udf_fn, "device", None)
     return grad_fn
 
 
 class GridFiller:
-    """Fill an N³ UDF vertex grid from a per-point decoder function."""
+    """Fill an N³ UDF vertex grid from a per-point decoder function.
+
+    queries: where and in slices of how many points the decoder runs
+    (`QueryStream`; None: CUDA, slices of 2^19 points)."""
 
     def __init__(
         self,
         resolution: int,
         coords_range: tuple = (-1.0, 1.0),
         block: int | None = None,
-        max_batch: int = 2**19,
         max_dist: float = 0.1,
         band_mult: float = 2.5,
         surface_bias: float | str = 0.0,
-        device=None,
-        mesh=None,
+        queries: QueryStream | None = None,
     ):
-        self.device = resolve_device(device)
-        self.mesh = mesh  # optional DeviceMesh: the query stream is split over 'data'
+        self.queries = queries if queries is not None else QueryStream()
         self.surface_bias = surface_bias
         self.N = resolution
         self.lo, self.hi = coords_range
-        self.max_batch = max_batch
         self.max_dist = max_dist
         self.band_mult = band_mult
         self.spacing = (self.hi - self.lo) / (resolution - 1)
@@ -231,18 +240,19 @@ class GridFiller:
         self._block_centers = cg.reshape(-1, 3)
 
     def _offsets(self, n: int) -> torch.Tensor:
-        r = torch.arange(n, device=self.device)
+        r = torch.arange(n, device=self.queries.device)
         return torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3)
 
     @torch.no_grad()
     def fill(self, udf_fn: UdfFn, return_stats: bool = False):
         """Return the (N, N, N) float32 UDF grid (numpy, host)."""
-        N, B, nb, dev = self.N, self.block, self.nb, self.device
+        N, B, nb, queries = self.N, self.block, self.nb, self.queries
+        dev = queries.device
         sp = torch.tensor(self.spacing, dtype=torch.float32, device=dev)
         lo = torch.tensor(self.lo, dtype=torch.float32, device=dev)
 
         if B == 1:
-            grid = fill_grid_dense(udf_fn, N, (self.lo, self.hi), self.max_batch, dev, self.mesh)
+            grid = fill_grid_dense(udf_fn, N, (self.lo, self.hi), queries)
             if self.surface_bias == "auto":
                 vb = 4 if N % 4 == 0 else (2 if N % 2 == 0 else 1)
                 nbv = N // vb
@@ -259,7 +269,7 @@ class GridFiller:
             return grid
 
         centers = torch.from_numpy(self._block_centers).to(dev)
-        coarse = _chunked(udf_fn, centers, self.max_batch, self.mesh).reshape(nb, nb, nb)
+        coarse = queries.run(udf_fn, centers).reshape(nb, nb, nb)
         ab = torch.nonzero(coarse < self.threshold).to(torch.int32)  # (M, 3), C order
 
         B2 = self.sub_block
@@ -272,8 +282,9 @@ class GridFiller:
                 vidx = abc[:, None, :].to(torch.float32) * B + off[None]
                 return udf_fn(vidx.reshape(-1, 3) * sp + lo)
 
-            per = max(self.max_batch // n_sub**3, 1)
-            sub_vals = _chunked(sub_centers, ab, per, self.mesh).reshape(len(ab), n_sub, n_sub, n_sub)
+            per = max(queries.chunk // n_sub**3, 1)
+            sub_vals = queries.sliced(per).run(sub_centers, ab).reshape(len(ab), n_sub, n_sub,
+                                                                        n_sub)
             sub_idx = torch.nonzero(sub_vals < sub_thr)
             ab = (ab[sub_idx[:, 0]] * n_sub + sub_idx[:, 1:]).to(torch.int32)
             B = B2
@@ -295,8 +306,8 @@ class GridFiller:
                 vidx = abc[:, None, :] * B + off[None]
                 return fine(vidx.reshape(-1, 3).to(torch.float32) * sp + lo)
 
-            per = max(self.max_batch // B**3, 1)
-            vals = _chunked(block_vals, ab, per, self.mesh).cpu().numpy()
+            per = max(queries.chunk // B**3, 1)
+            vals = queries.sliced(per).run(block_vals, ab).cpu().numpy()
             M = len(ab32)
             qstep = np.float32(self.max_dist / 65535.0)
             if u16 is not None:
@@ -351,8 +362,8 @@ class GridFiller:
 
         Deliberate deviation from the JAX package, which evaluates at the
         linspace coordinates: the nodes are taken at index·spacing + lo in
-        float32, where the fill evaluated them and where the lazy lookups by
-        grid id do (the two differ by an ulp at most nodes)."""
+        float32, where the fill evaluated them and where the gradient
+        queries by grid id do (the two differ by an ulp at most nodes)."""
         N = self.N
         gids = np.flatnonzero(udf_grid.reshape(-1) < band_mult * self.spacing)
         grads = np.zeros((N**3, 3), dtype=np.float32)
@@ -361,17 +372,16 @@ class GridFiller:
         x, rem = gids // (N * N), gids % (N * N)
         idx = np.stack([x, rem // N, rem % N], axis=-1).astype(np.float32)
         pts = idx * np.float32(self.spacing) + np.float32(self.lo)
-        grads[gids] = eval_in_chunks(grad_fn, pts, self.max_batch, device=self.device,
-                                     mesh=self.mesh)
+        grads[gids] = self.queries.fetch(grad_fn, pts)
         return grads.reshape(N, N, N, 3)
 
 
 @torch.no_grad()
 def fill_grid_dense(udf_fn: UdfFn, resolution: int, coords_range=(-1.0, 1.0),
-                    max_batch: int = 2**19, device=None, mesh=None) -> np.ndarray:
-    """Naive dense fill — the oracle for GridFiller (`mesh` as in `_chunked`)."""
-    dev = resolve_device(device)
+                    queries: QueryStream | None = None) -> np.ndarray:
+    """Naive dense fill — the oracle for GridFiller (`queries` as there)."""
+    queries = queries if queries is not None else QueryStream()
     xs = np.linspace(coords_range[0], coords_range[1], resolution, dtype=np.float32)
     g = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), axis=-1).reshape(-1, 3)
-    vals = _chunked(udf_fn, torch.from_numpy(g).to(dev), max_batch, mesh)
+    vals = queries.run(udf_fn, torch.from_numpy(g).to(queries.device))
     return vals.cpu().numpy().reshape(resolution, resolution, resolution)

@@ -9,8 +9,8 @@ gradient crossings along axis edges (an edge crosses the surface iff its
 endpoint gradients oppose), interpolation uses only the unsigned distances,
 and pass 2 orients each triangle from the per-cube signed gradients. A cube
 takes part only if max corner udf ≤ near_mult·voxel and mean corner udf <
-avg_mult·voxel. Gradients are looked up lazily, by flat grid id, at exactly
-the corners of the active cubes.
+avg_mult·voxel. Gradients are asked for by flat grid id, at exactly the
+corners of the active cubes, through a starter: gids → finalize().
 """
 
 from __future__ import annotations
@@ -87,7 +87,7 @@ def settled_int8_units(g: np.ndarray) -> np.ndarray:
 
 def marching_tetrahedra_udf(
     udf: np.ndarray,
-    gradients,
+    start_grads,
     coords_range: tuple = (-1.0, 1.0),
     near_mult: float = 1.74,
     avg_mult: float = 1.05,
@@ -98,14 +98,13 @@ def marching_tetrahedra_udf(
 ) -> Mesh:
     """Extract an open surface from an (R,R,R) UDF grid.
 
-    gradients (any scale; only directions are used): a dense (R,R,R,3)
-    array; a callable marked `by_gid = True` taking flat grid ids (K,)
-    int64; or any other callable, taking grid-node points (K, 3) f32.
-    Either callable returns (K, 3) and is asked only at the corners of the
-    active cubes. A by-gid callable with an `async_call` attribute (gids →
-    finalize(), `UdfEvaluator.grad_i8_gid_async`) is started before the
-    native corner-rank pass and fetched after it, so the device evaluates
-    while the host ranks.
+    start_grads: the gradients' starter. It takes sorted distinct flat grid
+    ids (K,) int64, the corners of the active cubes, and returns a
+    finalize() that gives their (K, 3) gradients (any scale; only
+    directions are used). The native path starts it before its corner-rank
+    pass and waits for it after, so that the device evaluates while the
+    host ranks (`UdfEvaluator.grad_i8_gid_async`); the numpy path asks it
+    again at the nodes nearest the vertices, to orient the faces.
     use_native: the native C++ passes (the default); False runs the numpy
     version of the same algorithm, the oracle the native passes are held to.
     active_blocks: optional (ab (M,3), B) from GridFiller.fill — every
@@ -122,17 +121,8 @@ def marching_tetrahedra_udf(
     lo, hi = coords_range
     voxel = (hi - lo) / (R - 1)
     u = np.ascontiguousarray(udf, dtype=np.float32)
-    if callable(gradients):
-        if getattr(gradients, "by_gid", False):
-            grad_lookup = lambda gids: np.asarray(gradients(np.asarray(gids)), np.float32)
-        else:
-            grad_lookup = _LazyGradLookup(gradients, R, lo, voxel)
-    else:
-        if gradients.shape != (R, R, R, 3):
-            raise ValueError(f"gradients must be (R, R, R, 3), got {gradients.shape}")
-        flat_g = np.ascontiguousarray(gradients, dtype=np.float32).reshape(-1, 3)
-        grad_lookup = lambda gids: flat_g[gids]
     if not use_native:
+        grad_lookup = lambda gids: np.asarray(start_grads(gids)(), np.float32)
         return _marching_udf_numpy(u, grad_lookup, R, lo, voxel, near_mult, avg_mult)
 
     with span("marching.pass1", times, "mt_pass1"):
@@ -159,13 +149,11 @@ def marching_tetrahedra_udf(
     if len(cube_ids) == 0:
         return empty_mesh()
     with span("marching.unique", times, "mt_unique"):
-        grad_async = getattr(gradients, "async_call", None) if callable(gradients) else None
-        pending = grad_async(near_gids) if grad_async is not None else None
+        pending = start_grads(near_gids)
         # pass 1 emitted the sorted distinct corners: ranks, not np.unique
         inv8 = native.mt_corner_ranks(near_gids, cube_ids, R)
-    with span("marching.grads", times, "mt_grads"):  # with async_call, the wait for it
-        g_near = (np.asarray(pending(), np.float32) if pending is not None
-                  else grad_lookup(near_gids))
+    with span("marching.grads", times, "mt_grads"):  # the wait for the gradients
+        g_near = np.asarray(pending(), np.float32)
     with span("marching.g8", times, "mt_g8"):
         g8 = int8_units(g_near)[inv8]
     with span("marching.pass2", times, "mt_pass2"):
@@ -227,20 +215,6 @@ def _marching_udf_numpy(u, grad_lookup, R, lo, voxel, near_mult, avg_mult) -> Me
     return mesh
 
 
-class _LazyGradLookup:
-    """gid → gradient through a point-taking gradient callable."""
-
-    def __init__(self, grad_at, R: int, lo: float, voxel: float):
-        self.grad_at = grad_at
-        self.R = R
-        self.lo = lo
-        self.voxel = voxel
-
-    def __call__(self, gids: np.ndarray) -> np.ndarray:
-        pts = _gid_positions(np.asarray(gids, np.int64), self.R, self.lo, self.voxel)
-        return np.asarray(self.grad_at(pts), np.float32)
-
-
 def _cube_corner_gids(cube_xyz: np.ndarray, R: int) -> np.ndarray:
     """Flat grid ids of the 8 corners of each cube; cube_xyz (M, 3)."""
     base = (cube_xyz[:, 0].astype(np.int64) * R + cube_xyz[:, 1]) * R + cube_xyz[:, 2]
@@ -248,7 +222,7 @@ def _cube_corner_gids(cube_xyz: np.ndarray, R: int) -> np.ndarray:
     return base[:, None] + offs[None, :]
 
 
-def _gid_positions(gids: np.ndarray, R: int, lo: float, spacing: float) -> np.ndarray:
+def gid_positions(gids: np.ndarray, R: int, lo: float, spacing: float) -> np.ndarray:
     """Grid-node positions from flat grid ids."""
     x = gids // (R * R)
     rem = gids % (R * R)
@@ -292,8 +266,8 @@ def _emit_triangles_core(sign_vals: np.ndarray, corner_gids: np.ndarray, R: int,
     ua = (uniq // NV).astype(np.int64)
     ub = (uniq % NV).astype(np.int64)
     t = t_fn(ua, ub)
-    pa = _gid_positions(ua, R, lo, spacing)
-    pb = _gid_positions(ub, R, lo, spacing)
+    pa = gid_positions(ua, R, lo, spacing)
+    pb = gid_positions(ub, R, lo, spacing)
     verts = pa + t[:, None] * (pb - pa)
     faces = inv.reshape(-1, 3).astype(np.int64)
     # t clamped onto a shared grid node makes degenerate faces

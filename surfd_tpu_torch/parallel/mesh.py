@@ -19,7 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 from torch.utils._pytree import tree_map
 

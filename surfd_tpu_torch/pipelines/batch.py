@@ -14,13 +14,14 @@ span sits in the caller's call tree); grad mode is per thread too, and
 every extraction turns it off itself. Meshes come out in input order and
 do not depend on the depth.
 
-Under a device mesh (`cfg.mesh`) every extraction issues collectives, and
-a process group's collectives must reach every rank in the same order: two
-threads sharing one group could interleave differently on two ranks and
-deadlock or mix up results. So the k-th extraction of a pipeline runs on
-slot k mod depth, each slot with its own fork of the mesh (new process
-groups, made once per mesh and slot, on every rank in the same order), and
-extraction k + depth starts only after extraction k has finished.
+Over data ranks (a DeviceMesh in `cfg.mesh`) every extraction issues
+collectives, and a process group's collectives must reach every rank in the
+same order: two threads sharing one group could interleave differently on
+two ranks and deadlock or mix up results. So the k-th extraction of a
+pipeline runs on slot k mod depth, each slot with its own fork of the
+DeviceMesh (new process groups, made once per DeviceMesh and slot, on every
+rank in the same order), and extraction k + depth starts only after
+extraction k has finished.
 """
 
 from __future__ import annotations
@@ -62,20 +63,21 @@ def _on_callers_stream(fn: Callable) -> Callable:
     return run
 
 
-_FORKS: dict = {}  # id(mesh) → (mesh, [its forks, one a pipeline slot])
+_FORKS: dict = {}  # id(ranks) → (ranks, [its forks, one a pipeline slot])
 
 
 def _slot_configs(cfg: MeshExtractionConfig, depth: int) -> list:
-    """One config a pipeline slot: `cfg` itself without a mesh or at depth
-    1, else `cfg` on the slot's own fork of the mesh."""
-    if cfg.mesh is None or depth == 1:
+    """One config a pipeline slot: `cfg` itself without data ranks or at
+    depth 1, else `cfg` on the slot's own fork of its DeviceMesh."""
+    ranks = cfg.mesh
+    if ranks is None or depth == 1:
         return [cfg] * depth
     from ..parallel.mesh import fork_mesh
 
-    _, forks = _FORKS.setdefault(id(cfg.mesh), (cfg.mesh, []))
+    _, forks = _FORKS.setdefault(id(ranks), (ranks, []))
     while len(forks) < depth:
-        forks.append(fork_mesh(cfg.mesh))
-    return [dataclasses.replace(cfg, mesh=m) for m in forks[:depth]]
+        forks.append(fork_mesh(ranks))
+    return [dataclasses.replace(cfg, mesh=fork) for fork in forks[:depth]]
 
 
 def generate_meshes_pipelined(

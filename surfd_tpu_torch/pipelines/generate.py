@@ -6,7 +6,9 @@ every `MeshExtractionConfig` setting (the fused native face filter on u16 or
 exact f32 points, one- or two-tier, or no filter and the numpy cleanup), the
 numpy face filter `filter_faces_by_udf`, and the watertight alternative
 (signed marching at a small iso on the filled grid). `get_mesh_from_udf`
-also takes any torch point callable, such as an analytic field.
+also takes any torch point callable, such as an analytic field. Every
+query of one extraction goes through one `geometry.QueryStream`, built from
+the field's device, `MeshExtractionConfig.max_batch` and its `mesh`.
 
 Which evaluator runs where. Every decoder value on a CUDA device goes
 through kernel K1 (`ops.folded_udf`): precision "f32" for the coarse,
@@ -24,7 +26,6 @@ raises, and reaches those only when the caller asks for them.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,8 +36,7 @@ from ..diffusion import Schedule, VarType, ddim_sample_loop, p_sample_loop, plms
 from ..geometry import (
     GridFiller,
     Mesh,
-    eval_in_chunks,
-    eval_in_chunks_async,
+    QueryStream,
     filter_small_components,
     keep_largest_component,
     laplacian_smooth,
@@ -48,7 +48,8 @@ from ..geometry import (
     smooth_borders,
     stabilize,
 )
-from ..geometry.grid import GRAD_CHUNK, _chunked, to_device
+from ..geometry.grid import GRAD_CHUNK, to_device
+from ..geometry.marching import gid_positions
 from ..geometry.mesh_ops import _unique_i64
 from ..models.decoder import CbnDecoder, coords_encode, udf_from_logits
 from ..ops import mesh_laplacian
@@ -79,10 +80,13 @@ class UdfEvaluator:
     """The decoder bound to one latent: (P, 3) → (P,) UDF and its forms.
 
     Counterpart of the closure `make_udf_fn` returns in the JAX package. All
-    inputs and outputs of the device forms are tensors on `self.device`;
-    every form works through its input in chunks of `chunk` points (the
-    autograd gradient in chunks of at most `geometry.grid.GRAD_CHUNK`: it keeps
-    every activation of its chunk for the backward pass).
+    inputs and outputs of the device forms are tensors on `self.device`.
+    `queries` is its own `QueryStream`: that device, slices of `chunk`
+    points, no data ranks; the field's values go through it. The `*_bound`
+    forms are per-slice functions that a stream runs, and the queries of an
+    extraction run them in slices of `chunk` too (the autograd gradient
+    works in slices of at most `geometry.grid.GRAD_CHUNK`: it keeps every
+    activation of its slice for the backward pass).
     """
 
     def __init__(self, decoder: CbnDecoder, latent: torch.Tensor, max_dist: float,
@@ -92,22 +96,17 @@ class UdfEvaluator:
         self.latent = latent
         self.max_dist = float(max_dist)
         self.chunk = chunk
+        self.queries = QueryStream(device, chunk)
         self.folded = fold_decoder(decoder, latent, self.max_dist)
         self._band = None
 
-    def _chunks(self, fn, x: torch.Tensor, chunk: int | None = None, mesh=None) -> torch.Tensor:
-        """fn over slices of `chunk` (default `self.chunk`) points; with a
-        DeviceMesh the slices are split over its 'data' ranks and gathered
-        (`geometry.grid._chunked`)."""
-        return _chunked(fn, x, chunk or self.chunk, mesh)
-
     def __call__(self, pts: torch.Tensor) -> torch.Tensor:
         """Float32 UDF (K1 f32)."""
-        return self._chunks(lambda p: folded_udf(self.folded, p, "f32"), pts)
+        return self.queries.run(lambda p: folded_udf(self.folded, p, "f32"), pts)
 
     def udf_bf16(self, pts: torch.Tensor) -> torch.Tensor:
         """Tier-1 UDF: bf16 matmul inputs, f32 sums (K1 bf16)."""
-        return self._chunks(lambda p: folded_udf(self.folded, p, "bf16"), pts)
+        return self.queries.run(lambda p: folded_udf(self.folded, p, "bf16"), pts)
 
     def u16(self, pts: torch.Tensor) -> torch.Tensor:
         """UDF quantised to max_dist/65535 steps (values 0..65535, int32)."""
@@ -126,7 +125,8 @@ class UdfEvaluator:
 
     def below_q16_bound(self, thr: float, qlo: float, qstep: float,
                         bias: BiasTable | None = None):
-        """The chunk function of `below_q16`: (P, 3) u16 points → (P,) bool."""
+        """udf(p) − bias(p) ≤ thr at u16-quantised points p = q·qstep + qlo,
+        a slice at a time: (P, 3) u16 points → (P,) bool."""
 
         def one(q):
             pts = self._dequant(q, qlo, qstep)
@@ -139,8 +139,10 @@ class UdfEvaluator:
 
     def below2t_q16_bound(self, thr: float, qlo: float, qstep: float, band: float,
                           bias: BiasTable | None = None):
-        """The chunk function of `below2t_q16`: (P, 3) u16 points → (P, 2)
-        bool, (below, sure) on the tier-1 UDF."""
+        """Tier 1 of the two-tier filter, a slice at a time: (P, 3) u16
+        points → (P, 2) bool, (below, sure) on the tier-1 UDF; `sure` is
+        False within `band` of the threshold, where the caller re-checks
+        with `below_q16_bound`."""
 
         def one(q):
             pts = self._dequant(q, qlo, qstep)
@@ -153,23 +155,10 @@ class UdfEvaluator:
 
         return one
 
-    def below_q16(self, qpts: torch.Tensor, thr: float, qlo: float, qstep: float,
-                  bias: BiasTable | None = None, mesh=None) -> torch.Tensor:
-        """udf(p) − bias(p) ≤ thr at u16-quantised points p = q·qstep + qlo."""
-        return self._chunks(self.below_q16_bound(thr, qlo, qstep, bias), qpts, mesh=mesh)
-
-    def below2t_q16(self, qpts: torch.Tensor, thr: float, qlo: float, qstep: float,
-                    band: float, bias: BiasTable | None = None, mesh=None):
-        """Tier 1 of the two-tier filter: (below, sure) on the tier-1 UDF;
-        `sure` is False within `band` of the threshold, where the caller
-        re-checks with `below_q16`."""
-        out = self._chunks(self.below2t_q16_bound(thr, qlo, qstep, band, bias), qpts, mesh=mesh)
-        return out[:, 0], out[:, 1]
-
-    def two_tier_band(self, mesh=None) -> float:
+    def two_tier_band(self, queries: QueryStream) -> float:
         """Calibrated tier-1 error band for this decoder and latent: 2× the
         max |tier 1 − f32| over a fixed 128k-point probe, at least
-        1e-4·max_dist.
+        1e-4·max_dist; the probe runs through `queries` on the first call.
 
         Deliberate deviation from the JAX package: its tier 1 is the all-bf16
         folded decoder, the port's is K1 bf16 (the TPU kernel's math, bf16
@@ -179,10 +168,10 @@ class UdfEvaluator:
         """
         if self._band is None:
             probe = np.random.default_rng(0).uniform(-1.0, 1.0, (131072, 3)).astype(np.float32)
-            p = torch.from_numpy(probe).to(self.device)
-            err = float(self._chunks(lambda x: (folded_udf(self.folded, x, "bf16")
-                                                - folded_udf(self.folded, x, "f32")).abs(),
-                                     p, mesh=mesh).max())
+            p = torch.from_numpy(probe).to(queries.device)
+            err = float(queries.run(lambda x: (folded_udf(self.folded, x, "bf16")
+                                               - folded_udf(self.folded, x, "f32")).abs(),
+                                    p).max())
             self._band = max(2.0 * err, 1e-4 * self.max_dist)
         return self._band
 
@@ -197,9 +186,9 @@ class UdfEvaluator:
         (`geometry.make_grad_fn` over this evaluator)."""
         return make_grad_fn(self, min(self.chunk, GRAD_CHUNK))(pts)
 
-    def grad_i8_gid_async(self, gids, R: int, lo: float, spacing: float, mesh=None):
-        """Start the int8 unit gradients at flat grid ids (host int64); the
-        returned finalize() gives them as host int8 (`eval_in_chunks_async`)."""
+    def grad_i8_gid_bound(self, R: int, lo: float, spacing: float):
+        """int8 unit gradients at flat grid ids of an R³ grid, a slice at a
+        time: (K,) int64 → (K, 3) int8."""
         RR = R * R
         sp = torch.tensor(np.float32(spacing))  # f32 CPU scalars: no device copy
         lo_t = torch.tensor(np.float32(lo))
@@ -210,12 +199,14 @@ class UdfEvaluator:
             n = d.norm(dim=-1, keepdim=True).clamp_min(1e-12)
             return torch.round(d / n * 127.0).to(torch.int8)
 
-        return eval_in_chunks_async(one, np.asarray(gids, np.int64), self.chunk,
-                                    device=self.device, mesh=mesh)
+        return one
 
-    def grad_i8_gid(self, gids, R: int, lo: float, spacing: float, mesh=None) -> np.ndarray:
-        """int8 unit gradients at flat grid ids (host int64 in, host int8 out)."""
-        return self.grad_i8_gid_async(gids, R, lo, spacing, mesh)()
+    def grad_i8_gid_async(self, gids, R: int, lo: float, spacing: float,
+                          queries: QueryStream):
+        """Start the int8 unit gradients at flat grid ids (host int64)
+        through `queries`; the returned finalize() gives them as host int8:
+        marching's gradient starter."""
+        return queries.start(self.grad_i8_gid_bound(R, lo, spacing), np.asarray(gids, np.int64))
 
 
 def make_udf_fn(decoder: CbnDecoder, state, latent, max_dist: float = 0.1, device=None,
@@ -264,20 +255,19 @@ class MeshExtractionConfig:
     two_tier_band: float | None = None
     final_laplacian_iters: int = 0
     min_component_faces: int = 0
-    # optional DeviceMesh (parallel.make_mesh) with a 'data' axis: the
-    # grid-query stream (fills, gradients, face filter, band calibration) is
-    # split over its ranks and gathered back, so that every rank holds the
-    # unsharded grid and runs the same host passes; every rank must call
+    # optional DeviceMesh (parallel.make_mesh) with a 'data' axis: the data
+    # ranks of the extraction's QueryStream. Every query (fills, gradients,
+    # face filter, band calibration) is split over them and gathered back,
+    # so that every rank holds the unsharded grid and runs the same host
+    # passes; every rank must call
     mesh: object = None
 
 
-def _device_of(udf_fn, grad_fn=None) -> torch.device:
-    """The extraction's device: udf_fn's, else grad_fn's, else CUDA (which
-    raises without a card: never a silent CPU run)."""
-    for d in (getattr(udf_fn, "device", None), getattr(grad_fn, "device", None)):
-        if d is not None:
-            return resolve_device(d)
-    return resolve_device(None)
+def _queries(udf_fn, cfg: MeshExtractionConfig) -> QueryStream:
+    """An extraction's queries: on the field's `device` (CUDA for a field
+    without one, which raises without a card: never a silent CPU run), in
+    slices of `cfg.max_batch`, over the data ranks of `cfg.mesh`."""
+    return QueryStream(getattr(udf_fn, "device", None), cfg.max_batch, cfg.mesh)
 
 
 def make_field_bias_at(bias_field: np.ndarray, lo: float, cell: float):
@@ -292,24 +282,22 @@ def make_field_bias_at(bias_field: np.ndarray, lo: float, cell: float):
     return bias_at
 
 
-def _below_f32(udf_fn, pts: np.ndarray, threshold: float, chunk: int, bias_at=None,
-               device=None, mesh=None) -> np.ndarray:
+def _below_f32(udf_fn, pts: np.ndarray, threshold: float, queries: QueryStream,
+               bias_at=None) -> np.ndarray:
     """udf(p) − bias_at(p) ≤ threshold at exact f32 points (host bool)."""
-    u = eval_in_chunks(udf_fn, pts, chunk, device=device, mesh=mesh)
+    u = queries.fetch(udf_fn, pts)
     if bias_at is not None:
         u = u - bias_at(pts)
     return u <= threshold
 
 
-def filter_faces_by_udf(mesh: Mesh, udf_fn, threshold: float, chunk: int = 2**16,
-                        bias_at=None, device_mesh=None) -> Mesh:
+def filter_faces_by_udf(mesh: Mesh, udf_fn, threshold: float, queries: QueryStream,
+                        bias_at=None) -> Mesh:
     """Drop faces with a vertex or an edge midpoint whose UDF exceeds
     `threshold` (the reference's false-face filter, th_dist = 1/N), in numpy
-    around one evaluation of the deduplicated points. bias_at: optional host
-    (P, 3) → (P,) local surface-bias floor; the test is then
-    udf(p) − bias_at(p) ≤ threshold. The points go to udf_fn's device, else
-    to CUDA. device_mesh: a DeviceMesh over whose 'data' ranks the points
-    are split (`MeshExtractionConfig.mesh`)."""
+    around one evaluation of the deduplicated points through `queries`.
+    bias_at: optional host (P, 3) → (P,) local surface-bias floor; the test
+    is then udf(p) − bias_at(p) ≤ threshold."""
     if len(mesh.faces) == 0:
         return mesh
     v, f = mesh.vertices, mesh.faces
@@ -320,7 +308,7 @@ def filter_faces_by_udf(mesh: Mesh, udf_fn, threshold: float, chunk: int = 2**16
     ea = (uniq // NV).astype(np.int64)
     eb = (uniq % NV).astype(np.int64)
     pts = np.concatenate([v, 0.5 * (v[ea] + v[eb])], axis=0).astype(np.float32)
-    ok = _below_f32(udf_fn, pts, threshold, chunk, bias_at, mesh=device_mesh)
+    ok = _below_f32(udf_fn, pts, threshold, queries, bias_at)
     mid_ok = ok[len(v):][inv].reshape(3, -1)
     keep = ok[: len(v)][f].all(axis=1) & mid_ok.all(axis=0)
     return Mesh(v, f[keep])
@@ -333,17 +321,19 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
     near-band corners, the face filter and the cleanup, as `cfg` selects.
 
     udf_fn: a `UdfEvaluator` (make_udf_fn), or any callable (P, 3) f32
-    tensor → (P,) on one device, such as a `geometry.TorchField`. The
-    evaluator's forms are used where it has them, as the JAX package probes
-    its evaluator: int8 gradients by grid id (`grad_i8_gid`), the u16-point
-    filter (`below_q16`) and its two tiers (`below2t_q16`, `two_tier_band`).
+    tensor → (P,) on one device, such as a `geometry.TorchField`. An
+    evaluator's own forms are used, as the JAX package probes its
+    evaluator: int8 gradients by grid id (`grad_i8_gid_async`), the
+    u16-point filter (`below_q16_bound`) and its two tiers
+    (`below2t_q16_bound`, `two_tier_band`), all in slices of its `chunk`.
     A plain callable gets its gradients from grad_fn (a torch point
-    callable, or a host one taking grid ids and marked `by_gid = True`), else
-    from `make_grad_fn`, and its filter on exact f32 points. The device is
-    udf_fn's `device`, else grad_fn's, else CUDA. Raises if the native
-    library cannot load. With `cfg.mesh` every rank of its 'data' axis makes
-    the call on the same udf_fn; each evaluates its share of every query
-    and all get the unsharded mesh.
+    callable), else from `make_grad_fn`, at the grid nodes, and its filter
+    on exact f32 points. Every query goes through one `QueryStream`: on
+    udf_fn's `device`, else CUDA, in slices of `cfg.max_batch`, over the
+    data ranks of `cfg.mesh`. Raises if the native library cannot load.
+    With `cfg.mesh` every rank of its 'data' axis makes the call on the
+    same udf_fn; each evaluates its share of every query and all get the
+    unsharded mesh.
 
     Spans (`utils.profiling.span`): `extract` around the call, and below it
     `extract.fill`, `extract.marching`, `extract.face_filter` and
@@ -362,12 +352,13 @@ def get_mesh_from_udf(udf_fn, grad_fn=None, cfg: MeshExtractionConfig = MeshExtr
 
 def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
     """`get_mesh_from_udf`'s work: (mesh, stats)."""
-    dev = _device_of(udf_fn, grad_fn)
+    queries = _queries(udf_fn, cfg)
+    # an evaluator's own forms run in slices of its chunk
+    own = queries.sliced(udf_fn.chunk) if isinstance(udf_fn, UdfEvaluator) else None
     times = {}
     with span("extract.fill", times, "grid_fill"):
-        gf = GridFiller(cfg.resolution, cfg.coords_range, max_batch=cfg.max_batch,
-                        max_dist=cfg.max_dist, surface_bias=cfg.surface_bias, device=dev,
-                        mesh=cfg.mesh)
+        gf = GridFiller(cfg.resolution, cfg.coords_range, max_dist=cfg.max_dist,
+                        surface_bias=cfg.surface_bias, queries=queries)
         grid, stats = gf.fill(udf_fn, return_stats=True)
     lo_, hi_ = cfg.coords_range
     R = cfg.resolution
@@ -382,20 +373,14 @@ def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
     active_blocks = (stats["ab"], stats["block"]) if len(stats.get("ab", ())) else None
 
     with span("extract.marching", times, "marching"):
-        gid_grad = getattr(udf_fn, "grad_i8_gid", None)
-        if grad_fn is None and gid_grad is not None:
-            grad_at = lambda gids: gid_grad(gids, R, lo_, voxel, mesh=cfg.mesh)
-            grad_at.by_gid = True
-            # marching starts it before its host corner-rank pass, so the two overlap
-            grad_at.async_call = lambda gids: udf_fn.grad_i8_gid_async(gids, R, lo_, voxel,
-                                                                       mesh=cfg.mesh)
-        elif getattr(grad_fn, "by_gid", False):
-            grad_at = grad_fn
+        # marching starts the gradients before its host corner-rank pass, so the two overlap
+        if grad_fn is None and own is not None:
+            start_grads = lambda gids: udf_fn.grad_i8_gid_async(gids, R, lo_, voxel, own)
         else:
             point_grad = grad_fn if grad_fn is not None else make_grad_fn(udf_fn)
-            grad_at = lambda pts: eval_in_chunks(point_grad, pts, cfg.max_batch, device=dev,
-                                                 mesh=cfg.mesh)
-        mesh = marching_tetrahedra_udf(grid, grad_at, cfg.coords_range, times=times,
+            start_grads = lambda gids: queries.start(
+                point_grad, gid_positions(np.asarray(gids, np.int64), R, lo_, voxel))
+        mesh = marching_tetrahedra_udf(grid, start_grads, cfg.coords_range, times=times,
                                        stats=stats, active_blocks=active_blocks)
     stats["raw_faces"] = len(mesh.faces)
 
@@ -413,22 +398,22 @@ def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
     stats["face_explosion"] = stats["face_budget_ratio"] > 2.0
 
     if len(mesh.faces) and cfg.filter_faces:
-        pre = getattr(udf_fn, "below_q16", None) is not None and cfg.quantized_filter_points
+        pre = own is not None and cfg.quantized_filter_points
         cleanup = dict(fill_holes=cfg.do_stabilize,
                        smooth_iters=20 if cfg.do_smooth_borders else 0,
                        lam=0.3, merge_decimals=6)
         with span("extract.face_filter", times, "face_filter"):
             if pre:
                 with span("face_filter.prep", times, "ff_prep"):
-                    bias_tbl = (BiasTable(bias_field, lo_, cell, dev) if bias_field is not None
-                                else None)
+                    bias_tbl = (BiasTable(bias_field, lo_, cell, queries.device)
+                                if bias_field is not None else None)
                     threshold = cfg.face_filter_mult / R + (0.0 if bias_tbl is not None
                                                             else surf_bias)
                     qstep = (hi_ - lo_) / 65535.0
                     two_tier, band = cfg.two_tier_filter, None
                     if two_tier:
                         band = (cfg.two_tier_band if cfg.two_tier_band is not None
-                                else udf_fn.two_tier_band(mesh=cfg.mesh))
+                                else udf_fn.two_tier_band(own))
                         # filter points sit on the surface, where |udf − thr| is
                         # small: a wide band re-checks most of them and one f32 pass
                         # is cheaper
@@ -442,9 +427,7 @@ def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
                     bound = (udf_fn.below2t_q16_bound(threshold, lo_, qstep, band, bias_tbl)
                              if two_tier else udf_fn.below_q16_bound(threshold, lo_, qstep,
                                                                      bias_tbl))
-                    query = lambda qp: eval_in_chunks_async(bound, qp.view(np.int16),
-                                                            udf_fn.chunk, device=dev,
-                                                            mesh=cfg.mesh)
+                    query = lambda qp: own.start(bound, qp.view(np.int16))
                     verts_pending = query(qverts)
                     qmids, einv, ea, eb = native.face_filter_prep_q16(
                         mesh.vertices, mesh.faces, lo_, 1.0 / qstep)
@@ -459,9 +442,9 @@ def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
                         # tier 2 (f32, exact): only the band points re-query
                         with span("face_filter.t2", times, "ff_t2"):
                             qall = np.concatenate([qverts, qmids])[uns]
-                            ok[uns] = eval_in_chunks(
+                            ok[uns] = own.fetch(
                                 udf_fn.below_q16_bound(threshold, lo_, qstep, bias_tbl),
-                                qall.view(np.int16), udf_fn.chunk, device=dev, mesh=cfg.mesh)
+                                qall.view(np.int16))
                 else:
                     ok = res
                 ok = ok.view(np.uint8)
@@ -474,7 +457,7 @@ def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
                                                             else surf_bias)
                     stats.update(ff_band=None, ff_threshold=threshold, ff_two_tier=False)
                     pts, einv = native.face_filter_prep(mesh.vertices, mesh.faces)
-                ok = _below_f32(udf_fn, pts, threshold, cfg.max_batch, bias_at, dev, cfg.mesh)
+                ok = _below_f32(udf_fn, pts, threshold, queries, bias_at)
         with span("extract.cleanup", times, "cleanup"):
             with span("cleanup.finalize", times, "cleanup_finalize"):
                 if pre:
@@ -483,7 +466,7 @@ def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
                 else:
                     v, f = native.finalize_mesh(mesh.vertices, mesh.faces, ok, einv, **cleanup)
                 mesh = Mesh(v, f)
-            mesh = _final_passes(mesh, cfg, times, dev)
+            mesh = _final_passes(mesh, cfg, times, queries.device)
     elif len(mesh.faces):
         # no filter: the numpy cleanup chain (MT output is duplicate-free)
         with span("extract.cleanup", times, "cleanup"):
@@ -492,7 +475,7 @@ def _extract(udf_fn, grad_fn, cfg: MeshExtractionConfig):
                     mesh = stabilize(mesh, assume_clean=True)
                 if cfg.do_smooth_borders:
                     mesh = smooth_borders(mesh, iterations=20, lam=0.3)
-            mesh = _final_passes(mesh, cfg, times, dev)
+            mesh = _final_passes(mesh, cfg, times, queries.device)
             with span("cleanup.finalize", times, "cleanup_finalize"):
                 mesh = merge_duplicate_vertices(mesh)
 
@@ -530,27 +513,27 @@ def get_watertight_mesh_from_udf(udf_fn, cfg: MeshExtractionConfig = MeshExtract
     with `cfg.surface_bias`, so that iso applies to the bias-corrected
     field), signed marching tetrahedra on the host, the component with the
     longest bounding-box diagonal, renormalised to [-1, 1]. The shell of an
-    open sheet is cut by the domain wall, so it may have a boundary."""
-    dev = _device_of(udf_fn)
+    open sheet is cut by the domain wall, so it may have a boundary.
+
+    Spans: `extract` around the call, and below it `extract.fill` and
+    `extract.marching`, adding their host seconds to `stats["times"]` under
+    `grid_fill` and `marching`, then `extract.component`."""
     times = {}
-    t0 = time.perf_counter()
-    gf = GridFiller(cfg.resolution, cfg.coords_range, max_batch=cfg.max_batch,
-                    max_dist=cfg.max_dist, surface_bias=cfg.surface_bias, device=dev,
-                    mesh=cfg.mesh)
-    grid = gf.fill(udf_fn)
-    times["grid_fill"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mesh = marching_tetrahedra(grid, iso=iso, coords_range=cfg.coords_range)
-    times["marching"] = time.perf_counter() - t0
-    raw_faces = len(mesh.faces)
-    t0 = time.perf_counter()
-    mesh = keep_largest_component(mesh, by_bbox=True)
-    if len(mesh.vertices):
-        v = mesh.vertices
-        center = (v.max(0) + v.min(0)) / 2
-        scale = np.abs(v - center).max()
-        mesh = Mesh((v - center) / max(scale, 1e-9), mesh.faces)
-    times["component"] = time.perf_counter() - t0
+    with span("extract"):
+        with span("extract.fill", times, "grid_fill"):
+            gf = GridFiller(cfg.resolution, cfg.coords_range, max_dist=cfg.max_dist,
+                            surface_bias=cfg.surface_bias, queries=_queries(udf_fn, cfg))
+            grid = gf.fill(udf_fn)
+        with span("extract.marching", times, "marching"):
+            mesh = marching_tetrahedra(grid, iso=iso, coords_range=cfg.coords_range)
+        raw_faces = len(mesh.faces)
+        with span("extract.component"):
+            mesh = keep_largest_component(mesh, by_bbox=True)
+            if len(mesh.vertices):
+                v = mesh.vertices
+                center = (v.max(0) + v.min(0)) / 2
+                scale = np.abs(v - center).max()
+                mesh = Mesh((v - center) / max(scale, 1e-9), mesh.faces)
     if return_stats:
         return mesh, {"raw_faces": raw_faces, "final_faces": len(mesh.faces),
                       "times": {k: round(v, 3) for k, v in times.items()}}

@@ -1,11 +1,11 @@
-"""The overlapped grid-query stream on the CPU: `eval_in_chunks_async`
-against `eval_in_chunks` and JAX's `eval_in_chunks_async`; the extraction's
-schedule (the gradient query started before marching's corner ranks, the
-vertex query before the face filter's edge pass, the midpoint query after
-it, both fetched after); the async extraction's mesh against the
-synchronous one (`eval_in_chunks_async` replaced by a blocking closure) bit
-for bit, and against JAX's within the parity bars (faces 1 %, mean NN 0.1
-voxel); the sharded async stream at world 2 against the unsharded one.
+"""The overlapped grid-query stream on the CPU: `QueryStream.start`
+against `QueryStream.fetch` and JAX's `eval_in_chunks_async`; the
+extraction's schedule (the gradient query started before marching's corner
+ranks, the vertex query before the face filter's edge pass, the midpoint
+query after it, both fetched after); the async extraction's mesh against
+the synchronous one (`QueryStream.start` replaced by a blocking closure)
+bit for bit, and against JAX's within the parity bars (faces 1 %, mean NN
+0.1 voxel); the sharded async stream at world 2 against the unsharded one.
 
 On the CPU the async route computes at once, so these tests hold its
 results and its order of calls; that the device overlaps the host shows
@@ -20,9 +20,9 @@ from surfd_tpu.geometry import eval_in_chunks_async as jax_eval_in_chunks_async
 from surfd_tpu.pipelines import MeshExtractionConfig as JaxConfig
 from surfd_tpu.pipelines import get_mesh_from_udf as jax_get_mesh
 from surfd_tpu_torch import native
-from surfd_tpu_torch.geometry import eval_in_chunks, eval_in_chunks_async
+from surfd_tpu_torch.geometry import QueryStream
+from surfd_tpu_torch.geometry.grid import to_device
 from surfd_tpu_torch.pipelines import MeshExtractionConfig, get_mesh_from_udf
-from surfd_tpu_torch.pipelines import generate as tgen
 from test_torch_parallel import _jax_test_decoder, run_world
 from test_torch_pipeline import (  # noqa: F401  (fixtures)
     MAX_DIST,
@@ -43,13 +43,13 @@ def test_async_equals_sync_and_jax(n, chunk):
     or a CPU tensor, and JAX's async stream's on the same points, bit for
     bit (2x + y − z is rounded alike by both)."""
     pts = np.random.default_rng(n).normal(size=(n, 3)).astype(np.float32)
-    pending = eval_in_chunks_async(_affine, pts, chunk, device="cpu")
-    sync = eval_in_chunks(_affine, pts, chunk, device="cpu")
+    queries = QueryStream("cpu", chunk)
+    pending = queries.start(_affine, pts)
+    sync = queries.fetch(_affine, pts)
     got = pending()
     assert isinstance(got, np.ndarray) and got.dtype == np.float32 and got.shape == (n,)
     np.testing.assert_array_equal(got, sync)
-    np.testing.assert_array_equal(eval_in_chunks_async(_affine, torch.from_numpy(pts), chunk)(),
-                                  sync)
+    np.testing.assert_array_equal(queries.start(_affine, torch.from_numpy(pts))(), sync)
     if n:
         want = jax_eval_in_chunks_async(jax.jit(lambda p: p[:, 0] * 2.0 + p[:, 1] - p[:, 2]),
                                         pts, chunk)()
@@ -62,15 +62,17 @@ def test_async_rows_and_kinds():
     fns = {"bool": (lambda p: p[:, 0] > 0, np.bool_, (500,)),
            "int8": (lambda p: torch.round(p * 50).to(torch.int8), np.int8, (500, 3)),
            "pair": (lambda p: torch.stack([p[:, 0] > 0, p[:, 1] > 0], 1), np.bool_, (500, 2))}
+    queries = QueryStream("cpu", 128)
     for name, (fn, dtype, shape) in fns.items():
-        got = eval_in_chunks_async(fn, pts, 128, device="cpu")()
+        got = queries.start(fn, pts)()
         assert got.dtype == dtype and got.shape == shape, name
-        np.testing.assert_array_equal(got, eval_in_chunks(fn, pts, 128, device="cpu"))
+        np.testing.assert_array_equal(got, queries.fetch(fn, pts))
 
 
-def _blocking(fn, pts, chunk, device=None, mesh=None):
-    """The synchronous stream behind eval_in_chunks_async's interface."""
-    res = eval_in_chunks(fn, pts, chunk, device=device, mesh=mesh)
+def _blocking(self, fn, pts):
+    """The synchronous stream behind QueryStream.start's interface."""
+    pts = pts if torch.is_tensor(pts) else to_device(pts, self.device)
+    res = self.run(fn, pts).detach().cpu().numpy()
     return lambda: res
 
 
@@ -103,7 +105,7 @@ def test_sphere_async_mesh_equals_sync_and_jax(bound, monkeypatch, setting):  # 
     jm = jax_get_mesh(jfn, cfg=JaxConfig(**kw))
     am, stats = get_mesh_from_udf(tfn, cfg=MeshExtractionConfig(**kw), return_stats=True)
     assert "ff_fetch" in stats["times"] and "ff_prep" in stats["times"]
-    monkeypatch.setattr(tgen, "eval_in_chunks_async", _blocking)
+    monkeypatch.setattr(QueryStream, "start", _blocking)
     sm = get_mesh_from_udf(tfn, cfg=MeshExtractionConfig(**kw))
     assert _same_mesh(am, sm)
     _assert_meshes_agree(jm, am)
@@ -118,11 +120,12 @@ def test_extraction_schedule(bound, monkeypatch):  # noqa: F811
     both are fetched after both started."""
     _, tfn, _ = bound
     log = []
+    real = QueryStream.start
 
-    def started(fn, pts, *a, **k):
+    def started(self, fn, pts):
         n = sum(e.startswith("start") for e in log)
         log.append(f"start{n}")
-        pending = eval_in_chunks_async(fn, pts, *a, **k)
+        pending = real(self, fn, pts)
 
         def fetch():
             log.append(f"fetch{n}")
@@ -136,7 +139,7 @@ def test_extraction_schedule(bound, monkeypatch):  # noqa: F811
             return f(*a, **k)
         return g
 
-    monkeypatch.setattr(tgen, "eval_in_chunks_async", started)
+    monkeypatch.setattr(QueryStream, "start", started)
     monkeypatch.setattr(native, "mt_corner_ranks", logged("ranks", native.mt_corner_ranks))
     monkeypatch.setattr(native, "face_filter_prep_q16",
                         logged("prep", native.face_filter_prep_q16))
@@ -147,7 +150,7 @@ def test_extraction_schedule(bound, monkeypatch):  # noqa: F811
 
 
 def test_sharded_async_stream_equals_unsharded(tmp_path):
-    """World 2 over gloo: eval_in_chunks_async on the mesh equals the
+    """World 2 over gloo: QueryStream.start over the data ranks equals the
     unsharded stream at atol 0 (checked in each rank: three output kinds,
     three slice counts, and the int8 gradients by grid id); the ranks agree."""
     sd, lats = _jax_test_decoder()

@@ -20,7 +20,6 @@ from surfd_tpu.pipelines.generate import make_field_bias_at as jax_bias_at
 from surfd_tpu_torch import native
 from surfd_tpu_torch.geometry import (
     TorchField,
-    eval_in_chunks,
     make_grad_fn,
     marching_tetrahedra_udf,
     sphere_fields,
@@ -65,6 +64,12 @@ def _threads():
     torch.set_num_threads(2)
 
 
+def _dense(g):
+    """A dense (R, R, R, 3) gradient array as marching's gradient starter."""
+    flat = np.ascontiguousarray(g, dtype=np.float32).reshape(-1, 3)
+    return lambda gids: (lambda: flat[gids])
+
+
 def test_config_fields_match_jax():
     """Every field of JAX's config, its device mesh included, with its default."""
     want = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
@@ -95,8 +100,8 @@ def test_setting_stats(bound):
             for name in ("unquantised", "single tier", "band override", "wide band")}
     default = get_mesh_from_udf(tfn, cfg=MeshExtractionConfig(**KW), return_stats=True)[1]
     thr = 4.0 / R
-    assert default["ff_band"] == tfn.two_tier_band()
-    assert default["ff_two_tier"] == (tfn.two_tier_band() < 0.25 * thr)
+    assert default["ff_band"] == tfn.two_tier_band(tfn.queries)
+    assert default["ff_two_tier"] == (tfn.two_tier_band(tfn.queries) < 0.25 * thr)
     assert runs["band override"]["ff_band"] == 5e-3 and runs["band override"]["ff_two_tier"]
     assert runs["band override"]["ff_unsure"] > 0
     assert not runs["wide band"]["ff_two_tier"] and "ff_unsure" not in runs["wide band"]
@@ -158,18 +163,23 @@ def test_plain_callable_matches_jax():
 
 
 def test_plain_callable_grad_fn_forms():
-    """A point-taking grad_fn, a grid-id one (by_gid) and none at all give
-    one mesh; the device comes from the field, else from grad_fn."""
+    """An autograd grad_fn, one that reads the dense analytic gradients at
+    the grid node, and none at all give one mesh; the device comes from the
+    field's `device`, also on a plain function."""
     kw = dict(resolution=40, max_batch=2**14)
     field = TorchField("sphere", "cpu")
     cfg = MeshExtractionConfig(**kw)
     want = get_mesh_from_udf(field, cfg=cfg)
     _, _, grad, _ = sphere_fields(40)
-    flat = grad.reshape(-1, 3)
-    by_gid = lambda gids: flat[gids]
-    by_gid.by_gid = True
-    bare = lambda p: field(p)  # no device attribute: grad_fn's is used
-    for g, f in ((make_grad_fn(field), field), (by_gid, field), (make_grad_fn(field), bare)):
+    flat = torch.from_numpy(grad.reshape(-1, 3))
+
+    def at_node(p):
+        idx = torch.round((p + 1.0) * (39 / 2.0)).long().clamp(0, 39)
+        return flat[(idx[:, 0] * 40 + idx[:, 1]) * 40 + idx[:, 2]]
+
+    bare = lambda p: field(p)  # noqa: E731
+    bare.device = "cpu"
+    for g, f in ((make_grad_fn(field), field), (at_node, field), (make_grad_fn(field), bare)):
         got = get_mesh_from_udf(f, g, cfg=cfg)
         assert abs(len(got.faces) - len(want.faces)) <= 0.01 * len(want.faces)
         assert _mean_nn_chamfer(got.vertices, want.vertices) <= 0.1 * 2.0 / 39
@@ -180,6 +190,10 @@ def test_plain_callable_needs_a_device():
         pytest.skip("checks the behaviour without a CUDA card")
     with pytest.raises(RuntimeError, match="CUDA"):
         get_mesh_from_udf(lambda p: p.norm(dim=-1), cfg=MeshExtractionConfig(resolution=16))
+    # grad_fn does not name the device: the field does
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_mesh_from_udf(lambda p: p.norm(dim=-1), make_grad_fn(TorchField("sphere", "cpu")),
+                          cfg=MeshExtractionConfig(resolution=16))
 
 
 def test_config_passed_as_grad_fn_raises(bound):
@@ -202,7 +216,7 @@ def test_filter_faces_by_udf_matches_jax(bound, biased):
     jfn, tfn, _ = bound
     mesh = _raw_mesh(tfn)
     pts, einv = native.face_filter_prep(mesh.vertices, mesh.faces)
-    u = eval_in_chunks(tfn, pts, 2**14)
+    u = tfn.queries.fetch(tfn, pts)
     bias_at = jbias = None
     if biased:
         nb = 8
@@ -212,7 +226,7 @@ def test_filter_faces_by_udf_matches_jax(bound, biased):
         np.testing.assert_array_equal(bias_at(pts), jbias(pts))
         u = u - bias_at(pts)
     thr = float(np.quantile(u, 0.8))
-    got = filter_faces_by_udf(mesh, tfn, thr, chunk=2**14, bias_at=bias_at)
+    got = filter_faces_by_udf(mesh, tfn, thr, tfn.queries, bias_at=bias_at)
     want = jax_filter(mesh, jfn, thr, chunk=2**14, bias_at=jbias)
     # faces one package keeps and the other drops must touch a point within
     # 1e-5 of the threshold (one f32 rounding apart in the two decoders)
@@ -234,10 +248,10 @@ def test_filter_faces_by_udf_equals_fused_mask(bound):
     _, tfn, _ = bound
     mesh = _raw_mesh(tfn)
     pts, einv = native.face_filter_prep(mesh.vertices, mesh.faces)
-    thr = float(np.median(eval_in_chunks(tfn, pts, 2**14)))
-    ok = eval_in_chunks(tfn, pts, 2**14) <= thr
+    thr = float(np.median(tfn.queries.fetch(tfn, pts)))
+    ok = tfn.queries.fetch(tfn, pts) <= thr
     fused = mesh.faces[ok[mesh.faces].all(axis=1) & ok[len(mesh.vertices) + einv].all(axis=1)]
-    np.testing.assert_array_equal(filter_faces_by_udf(mesh, tfn, thr, chunk=2**14).faces, fused)
+    np.testing.assert_array_equal(filter_faces_by_udf(mesh, tfn, thr, tfn.queries).faces, fused)
 
 
 @pytest.mark.parametrize("surface_bias", [0.0, "auto"])
@@ -261,7 +275,7 @@ def test_filter_faces_by_udf_equals_program_unquantised(bound, surface_bias):
     else:
         bias_at = None
         thr += 0.0 if field is not None else float(stats.get("surface_bias") or 0.0)
-    kept = filter_faces_by_udf(raw, tfn, thr, chunk=2**14, bias_at=bias_at)
+    kept = filter_faces_by_udf(raw, tfn, thr, tfn.queries, bias_at=bias_at)
     kept = merge_duplicate_vertices(remove_unreferenced_vertices(kept))
     assert 1000 < len(kept.faces) < len(raw.faces)
     np.testing.assert_array_equal(kept.vertices, prog.vertices)
@@ -271,29 +285,28 @@ def test_filter_faces_by_udf_equals_program_unquantised(bound, surface_bias):
 def test_filter_faces_by_udf_empty(bound):
     _, tfn, _ = bound
     empty = marching_tetrahedra_udf(np.ones((8, 8, 8), np.float32),
-                                    np.zeros((8, 8, 8, 3), np.float32))
-    assert len(filter_faces_by_udf(empty, tfn, 0.1).faces) == 0
+                                    _dense(np.zeros((8, 8, 8, 3), np.float32)))
+    assert len(filter_faces_by_udf(empty, tfn, 0.1, tfn.queries).faces) == 0
 
 
 def test_dense_and_lazy_gradients_agree(bound):
     """fill_gradients over make_grad_fn takes the nodes where the fill and
-    the lazy lookup by grid id take them: at every active-cube corner both
-    routes round to the same int8 unit, and native marching on the dense
-    grid gives the lazy route's mesh."""
+    the gradient query by grid id take them: at every active-cube corner
+    both routes round to the same int8 unit, and native marching on the
+    dense grid gives the by-id route's mesh."""
     from surfd_tpu_torch.geometry import GridFiller
 
     _, tfn, _ = bound
-    gf = GridFiller(R, max_dist=MAX_DIST, max_batch=2**14, device="cpu")
+    gf = GridFiller(R, max_dist=MAX_DIST, queries=tfn.queries)
     grid, stats = gf.fill(tfn, return_stats=True)
     dense = gf.fill_gradients(make_grad_fn(tfn), grid)
     _, corners = native.mt_active_cubes(grid, 1.74 * VOXEL, 1.05 * VOXEL)
     g = dense.reshape(-1, 3)[corners]
-    lazy = lambda gids: tfn.grad_i8_gid(gids, R, -1.0, VOXEL)
-    lazy.by_gid = True
-    np.testing.assert_array_equal(int8_units(g), lazy(corners))
+    lazy = lambda gids: tfn.grad_i8_gid_async(gids, R, -1.0, VOXEL, tfn.queries)  # noqa: E731
+    np.testing.assert_array_equal(int8_units(g), lazy(corners)())
     d8 = np.zeros_like(dense.reshape(-1, 3))
-    d8[corners] = lazy(corners)
-    a = marching_tetrahedra_udf(grid, d8.reshape(dense.shape))
+    d8[corners] = lazy(corners)()
+    a = marching_tetrahedra_udf(grid, _dense(d8))
     b = marching_tetrahedra_udf(grid, lazy, active_blocks=(stats["ab"], stats["block"]))
     assert len(a.faces) > 1000
     np.testing.assert_array_equal(a.vertices, b.vertices)
@@ -308,14 +321,14 @@ def test_settled_int8_units_are_read_alike(bound):
     from surfd_tpu_torch.geometry import GridFiller, hausdorff_distance
 
     _, tfn, _ = bound
-    gf = GridFiller(R, max_dist=MAX_DIST, max_batch=2**14, device="cpu")
+    gf = GridFiller(R, max_dist=MAX_DIST, queries=tfn.queries)
     grid = gf.fill(tfn)
     dense = gf.fill_gradients(make_grad_fn(tfn), grid)
     g8 = settled_int8_units(dense)
     assert g8.shape == dense.shape
     np.testing.assert_array_equal(int8_units(g8).astype(np.float32), g8)
-    a = marching_tetrahedra_udf(grid, g8, use_native=False)
-    b = marching_tetrahedra_udf(grid, g8)
+    a = marching_tetrahedra_udf(grid, _dense(g8), use_native=False)
+    b = marching_tetrahedra_udf(grid, _dense(g8))
     assert len(a.faces) == len(b.faces) > 1000
     assert hausdorff_distance(a.vertices, b.vertices) < 1e-5
 
@@ -335,10 +348,10 @@ def test_finalize_mesh_matches_numpy_chain(bound):
     _, tfn, _ = bound
     mesh = _raw_mesh(tfn)
     pts, einv = native.face_filter_prep(mesh.vertices, mesh.faces)
-    u = eval_in_chunks(tfn, pts, 2**14)
+    u = tfn.queries.fetch(tfn, pts)
     thr = float(np.quantile(u, 0.8))
     v, f = native.finalize_mesh(mesh.vertices, mesh.faces, u <= thr, einv)
-    m = remove_unreferenced_vertices(filter_faces_by_udf(mesh, tfn, thr, chunk=2**14))
+    m = remove_unreferenced_vertices(filter_faces_by_udf(mesh, tfn, thr, tfn.queries))
     m = merge_duplicate_vertices(smooth_borders(stabilize(m, assume_clean=True)))
     assert len(f) == len(m.faces) > 1000
     assert _mean_nn_chamfer(v, m.vertices) <= 1e-6

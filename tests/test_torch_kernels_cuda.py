@@ -542,6 +542,7 @@ def test_marching_oracles_on_fixture(cuda):
     grid id: equal faces, vertex Hausdorff < 1e-5."""
     from surfd_tpu_torch.geometry import (
         GridFiller,
+        QueryStream,
         hausdorff_distance,
         make_grad_fn,
         marching_tetrahedra_udf,
@@ -551,14 +552,14 @@ def test_marching_oracles_on_fixture(cuda):
     R = 96
     voxel = 2.0 / (R - 1)
     udf_fn = _fixture_evaluator(cuda)
-    gf = GridFiller(R, max_dist=udf_fn.max_dist, surface_bias="auto", device=cuda)
+    gf = GridFiller(R, max_dist=udf_fn.max_dist, surface_bias="auto", queries=QueryStream(cuda))
     grid, stats = gf.fill(udf_fn, return_stats=True)
     dense = gf.fill_gradients(make_grad_fn(udf_fn), grid)
-    g8 = settled_int8_units(dense)
-    m_np = marching_tetrahedra_udf(grid, g8, use_native=False)
-    m_cc = marching_tetrahedra_udf(grid, g8)
-    lazy = lambda gids: udf_fn.grad_i8_gid(gids, R, -1.0, voxel)
-    lazy.by_gid = True
+    g8 = settled_int8_units(dense).reshape(-1, 3)
+    dense_g8 = lambda gids: (lambda: g8[gids])  # noqa: E731
+    m_np = marching_tetrahedra_udf(grid, dense_g8, use_native=False)
+    m_cc = marching_tetrahedra_udf(grid, dense_g8)
+    lazy = lambda gids: udf_fn.grad_i8_gid_async(gids, R, -1.0, voxel, udf_fn.queries)  # noqa: E731
     m_lazy = marching_tetrahedra_udf(grid, lazy, active_blocks=(stats["ab"], stats["block"]))
     assert len(m_np.faces) == len(m_cc.faces) == len(m_lazy.faces) > 10_000
     assert hausdorff_distance(m_np.vertices, m_cc.vertices) < 1e-5

@@ -1,6 +1,6 @@
 """The port's extraction oracles against the JAX package's, on the CPU:
 the analytic fixtures, the numpy mesh cleanup, the gradient-vote sign
-recovery, the numpy marching path, make_grad_fn / eval_in_chunks and the
+recovery, the numpy marching path, make_grad_fn / QueryStream and the
 PLY writer. Inputs come from numpy seeds.
 
 Bars: the fixtures and every numpy function bit-equal (both sides are
@@ -24,14 +24,15 @@ from surfd_tpu_torch.geometry import analytic, mesh_ops, vote_signs
 from surfd_tpu_torch.geometry import (
     GridFiller,
     Mesh,
+    QueryStream,
     TorchField,
-    eval_in_chunks,
     hausdorff_distance,
     make_grad_fn,
     marching_tetrahedra,
     marching_tetrahedra_udf,
     write_ply,
 )
+from surfd_tpu_torch.geometry.marching import gid_positions
 
 FIELDS = ["sphere", "torus", "open_sheet"]
 
@@ -39,6 +40,12 @@ FIELDS = ["sphere", "torus", "open_sheet"]
 @pytest.fixture(autouse=True)
 def _threads():
     torch.set_num_threads(2)
+
+
+def _dense(g):
+    """A dense (R, R, R, 3) gradient array as marching's gradient starter."""
+    flat = np.ascontiguousarray(g, dtype=np.float32).reshape(-1, 3)
+    return lambda gids: (lambda: flat[gids])
 
 
 @pytest.mark.parametrize("name", FIELDS)
@@ -65,7 +72,7 @@ def test_torch_field_matches_fixture(name):
     pts = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), axis=-1).reshape(-1, 3)
     field = TorchField(name, "cpu")
     np.testing.assert_allclose(field(torch.from_numpy(pts)).numpy(), udf.reshape(-1), atol=1e-6)
-    g = eval_in_chunks(make_grad_fn(field), pts, 1000)
+    g = QueryStream("cpu", 1000).fetch(make_grad_fn(field), pts)
     smooth = udf.reshape(-1) > 0.05  # away from the surface and its kinks
     np.testing.assert_allclose(g[smooth], grad.reshape(-1, 3)[smooth], atol=1e-5)
 
@@ -75,7 +82,7 @@ def test_torch_field_rejects_unknown():
         TorchField("cube", "cpu")
 
 
-# --- make_grad_fn / eval_in_chunks against JAX ---------------------------
+# --- make_grad_fn / QueryStream against JAX's eval_in_chunks --------------
 
 def _jax_sphere(p):
     return jnp.abs(jnp.linalg.norm(p, axis=-1) - 0.6)
@@ -84,7 +91,7 @@ def _jax_sphere(p):
 def test_make_grad_fn_matches_jax():
     pts = np.random.default_rng(0).uniform(-1, 1, (5000, 3)).astype(np.float32)
     want = jgrid.eval_in_chunks(jgrid.make_grad_fn(_jax_sphere), pts, 1024)
-    got = eval_in_chunks(make_grad_fn(TorchField("sphere", "cpu")), pts, 1024)
+    got = QueryStream("cpu", 1024).fetch(make_grad_fn(TorchField("sphere", "cpu")), pts)
     assert got.shape == want.shape == (5000, 3)
     np.testing.assert_allclose(got, want, atol=1e-6)
 
@@ -93,10 +100,10 @@ def test_eval_in_chunks_matches_jax():
     pts = np.random.default_rng(1).uniform(-1, 1, (3001, 3)).astype(np.float32)
     want = jgrid.eval_in_chunks(_jax_sphere, pts, 512)
     for chunk in (512, 4096):
-        got = eval_in_chunks(TorchField("sphere", "cpu"), pts, chunk)
+        got = QueryStream("cpu", chunk).fetch(TorchField("sphere", "cpu"), pts)
         np.testing.assert_allclose(got, want, atol=1e-6)
     # a tensor is used where it lies; an empty input gives an empty result
-    t = eval_in_chunks(TorchField("sphere", "cpu"), torch.from_numpy(pts[:0]), 512)
+    t = QueryStream("cpu", 512).fetch(TorchField("sphere", "cpu"), torch.from_numpy(pts[:0]))
     assert t.shape == (0,)
 
 
@@ -105,8 +112,8 @@ def test_eval_in_chunks_never_defaults_to_cpu():
         pytest.skip("checks the behaviour without a CUDA card")
     pts = np.zeros((4, 3), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
-        eval_in_chunks(lambda p: p.sum(-1), pts, 4)
-    assert eval_in_chunks(lambda p: p.sum(-1), pts, 4, device="cpu").shape == (4,)
+        QueryStream(chunk=4).fetch(lambda p: p.sum(-1), pts)
+    assert QueryStream("cpu", 4).fetch(lambda p: p.sum(-1), pts).shape == (4,)
 
 
 def test_fill_gradients_matches_jax():
@@ -116,8 +123,8 @@ def test_fill_gradients_matches_jax():
     R = 32
     _, udf, _, _ = analytic.sphere_fields(R)
     want = jgrid.GridFiller(R).fill_gradients(jgrid.make_grad_fn(_jax_sphere), udf)
-    got = GridFiller(R, device="cpu").fill_gradients(make_grad_fn(TorchField("sphere", "cpu")),
-                                                    udf)
+    got = GridFiller(R, queries=QueryStream("cpu")).fill_gradients(
+        make_grad_fn(TorchField("sphere", "cpu")), udf)
     np.testing.assert_array_equal(np.abs(got).sum(-1) > 0, np.abs(want).sum(-1) > 0)
     np.testing.assert_allclose(got, want, atol=1e-5)
 
@@ -253,12 +260,13 @@ def test_vote_signs_reject_bad_shapes():
 @pytest.mark.parametrize("name", FIELDS)
 @pytest.mark.parametrize("R", [32, 48])  # even: the sheet lies between grid planes
 def test_numpy_marching_equals_jax(name, R):
-    """use_native=False on dense gradients, a point callable (the lazy
-    lookup) and a grid-id callable: JAX's numpy marching, bit for bit."""
+    """use_native=False on starters over dense gradients, a point callable
+    at the nodes' positions and a grid-id callable: JAX's numpy marching,
+    bit for bit."""
     _, udf, grad, _ = analytic.FIXTURES[name](R)
     want = jmarch.marching_tetrahedra_udf(udf, grad, use_native=False)
     assert len(want.faces) > 100
-    _assert_mesh_equal(marching_tetrahedra_udf(udf, grad, use_native=False), want)
+    _assert_mesh_equal(marching_tetrahedra_udf(udf, _dense(grad), use_native=False), want)
     flat = grad.reshape(-1, 3)
     lo, voxel = -1.0, 2.0 / (R - 1)
 
@@ -266,10 +274,10 @@ def test_numpy_marching_equals_jax(name, R):
         idx = np.clip(np.rint((pts - lo) / voxel), 0, R - 1).astype(np.int64)
         return flat[(idx[:, 0] * R + idx[:, 1]) * R + idx[:, 2]]
 
-    by_gid = lambda gids: flat[gids]
-    by_gid.by_gid = True
-    for fn in (by_point, by_gid):
-        _assert_mesh_equal(marching_tetrahedra_udf(udf, fn, use_native=False), want)
+    at_points = lambda gids: (lambda: by_point(gid_positions(gids, R, lo, voxel)))  # noqa: E731
+    by_id = lambda gids: (lambda: flat[gids])  # noqa: E731
+    for start in (at_points, by_id):
+        _assert_mesh_equal(marching_tetrahedra_udf(udf, start, use_native=False), want)
 
 
 @pytest.mark.parametrize("name", ["sphere", "torus", "open_sheet"])
@@ -277,8 +285,8 @@ def test_numpy_marching_matches_native(name):
     """The numpy path against the port's native passes: equal face counts,
     vertex Hausdorff < 1e-5 (tests/test_chamfer_parity.py's bars)."""
     _, udf, grad, _ = analytic.FIXTURES[name](64)
-    m_np = marching_tetrahedra_udf(udf, grad, use_native=False)
-    m_cc = marching_tetrahedra_udf(udf, grad)
+    m_np = marching_tetrahedra_udf(udf, _dense(grad), use_native=False)
+    m_cc = marching_tetrahedra_udf(udf, _dense(grad))
     assert len(m_np.faces) == len(m_cc.faces) > 1000
     assert hausdorff_distance(m_np.vertices, m_cc.vertices) < 1e-5
 
@@ -288,7 +296,7 @@ def test_numpy_marching_matches_oracle_signs(name):
     """Closed fields: the numpy path reproduces the exact-sign mesh."""
     R = 48
     sdf, udf, grad, _ = analytic.FIXTURES[name](R)
-    m_udf = marching_tetrahedra_udf(udf, grad, use_native=False)
+    m_udf = marching_tetrahedra_udf(udf, _dense(grad), use_native=False)
     m_oracle = marching_tetrahedra(sdf, iso=0.0)
     assert len(m_udf.faces) == len(m_oracle.faces)
     assert hausdorff_distance(m_udf.vertices, m_oracle.vertices) < 1e-5 * 2.0 / (R - 1)

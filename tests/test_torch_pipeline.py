@@ -22,7 +22,7 @@ from surfd_tpu.pipelines import get_mesh_from_udf as jax_get_mesh
 from surfd_tpu.pipelines import make_udf_fn as jax_make_udf_fn
 from surfd_tpu.utils.torch_convert import convert_cbn_decoder
 from surfd_tpu_torch.diffusion import named_beta_schedule, space_timesteps, spaced_schedule
-from surfd_tpu_torch.geometry import GridFiller
+from surfd_tpu_torch.geometry import GridFiller, QueryStream
 from surfd_tpu_torch.models import CbnDecoder, coords_encode
 from surfd_tpu_torch.pipelines import (
     BiasTable,
@@ -106,7 +106,8 @@ def test_below_mask_matches(bound):
     u = _jax_f32(jfn, q)
     thr = float(np.median(u))
     want = eval_in_chunks(jfn.below_packed_q16_bound(thr, LO, QSTEP), q, 4096, unpack_bits=True)
-    got = tfn.below_q16(torch.from_numpy(q.astype(np.int32)), thr, LO, QSTEP).numpy()
+    got = tfn.queries.run(tfn.below_q16_bound(thr, LO, QSTEP),
+                          torch.from_numpy(q.astype(np.int32))).numpy()
     far = ~_near(u, thr)
     assert far.sum() > 0.99 * len(q)
     np.testing.assert_array_equal(got[far], want[far].astype(bool))
@@ -129,7 +130,8 @@ def test_biased_below_mask_matches(bound):
         jfn.below_packed_q16_biased_bound(thr, LO, QSTEP, bscale, 1.0 / cell, nb, btbl),
         q, 4096, unpack_bits=True,
     )
-    got = tfn.below_q16(torch.from_numpy(q.astype(np.int32)), thr, LO, QSTEP, table).numpy()
+    got = tfn.queries.run(tfn.below_q16_bound(thr, LO, QSTEP, table),
+                          torch.from_numpy(q.astype(np.int32))).numpy()
     far = ~_near(u, thr)
     np.testing.assert_array_equal(got[far], want[far].astype(bool))
 
@@ -141,13 +143,15 @@ def test_two_tier_mask_equals_f32(bound):
     q = torch.from_numpy(_qpts(8192, 7).astype(np.int32))
     u = tfn(q.to(torch.float32) * QSTEP + LO)
     thr = float(u.median())
-    band = tfn.two_tier_band()
+    band = tfn.two_tier_band(tfn.queries)
     assert 1e-4 * MAX_DIST <= band < thr
-    below, sure = tfn.below2t_q16(q, thr, LO, QSTEP, band)
+    tier1 = tfn.queries.run(tfn.below2t_q16_bound(thr, LO, QSTEP, band), q)
+    below, sure = tier1[:, 0], tier1[:, 1]
     uns = torch.nonzero(~sure)[:, 0]
     assert len(uns) > 0
-    below[uns] = tfn.below_q16(q[uns], thr, LO, QSTEP)
-    torch.testing.assert_close(below, tfn.below_q16(q, thr, LO, QSTEP), rtol=0, atol=0)
+    f32 = tfn.below_q16_bound(thr, LO, QSTEP)
+    below[uns] = tfn.queries.run(f32, q[uns])
+    torch.testing.assert_close(below, tfn.queries.run(f32, q), rtol=0, atol=0)
 
 
 def test_grad_i8_within_one_step(bound):
@@ -156,7 +160,7 @@ def test_grad_i8_within_one_step(bound):
     idx = np.clip(np.rint((pts - LO) / VOXEL), 0, R - 1).astype(np.int64)
     gids = (idx[:, 0] * R + idx[:, 1]) * R + idx[:, 2]
     want = np.asarray(jfn.grad_i8_gid_bound(R, LO, VOXEL)(jnp.asarray(gids.astype(np.int32))))
-    got = tfn.grad_i8_gid(gids, R, LO, VOXEL)
+    got = tfn.grad_i8_gid_async(gids, R, LO, VOXEL, tfn.queries)()
     assert got.dtype == np.int8 and got.shape == (len(gids), 3)
     assert np.abs(got.astype(np.int64) - want.astype(np.int64)).max() <= 1
 
@@ -165,7 +169,7 @@ def test_grid_filler_matches(bound):
     jfn, tfn, _ = bound
     jg = JaxGridFiller(R, max_dist=MAX_DIST, max_batch=2**14, surface_bias="auto")
     want, ws = jg.fill(jfn, return_stats=True)
-    tg = GridFiller(R, max_dist=MAX_DIST, max_batch=2**14, surface_bias="auto", device="cpu")
+    tg = GridFiller(R, max_dist=MAX_DIST, surface_bias="auto", queries=QueryStream("cpu", 2**14))
     got, gs = tg.fill(tfn, return_stats=True)
     assert (tg.block, tg.sub_block, gs["block"]) == (8, 2, 2)
     np.testing.assert_array_equal(gs["ab"], ws["ab"])

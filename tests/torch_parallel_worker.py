@@ -26,45 +26,47 @@ from surfd_tpu_torch.parallel import multihost  # noqa: E402
 
 
 def case_chunks(inp, rank, world, mesh):
-    """_chunked / eval_in_chunks split over the ranks equal the unsharded
+    """QueryStream.run / fetch split over the ranks equal the unsharded
     results bit for bit: float, bool and several-rows-a-point outputs, slice
     counts that split evenly, unevenly and leave a rank without a slice."""
-    from surfd_tpu_torch.geometry.grid import _chunked, eval_in_chunks
+    from surfd_tpu_torch.geometry import QueryStream
 
     pts = torch.from_numpy(inp["pts"])
     fns = {"norm": lambda p: p.norm(dim=-1), "bool": lambda p: p[:, 0] > 0.1 * p[:, 1],
            "rows": lambda p: (p * 3.0).repeat_interleave(4, 0)[:, :2]}
     for chunk in (256, 300, 4096, 8192):
+        one, ranks = QueryStream("cpu", chunk), QueryStream("cpu", chunk, mesh)
         for name, fn in fns.items():
-            want, got = _chunked(fn, pts, chunk), _chunked(fn, pts, chunk, mesh)
+            want, got = one.run(fn, pts), ranks.run(fn, pts)
             assert got.dtype == want.dtype and torch.equal(got, want), (name, chunk)
-    got = eval_in_chunks(fns["norm"], inp["pts"], 256, device="cpu", mesh=mesh)
-    assert np.array_equal(got, eval_in_chunks(fns["norm"], inp["pts"], 256, device="cpu"))
-    empty = _chunked(fns["norm"], pts[:0], 256, mesh)
+    got = QueryStream("cpu", 256, mesh).fetch(fns["norm"], inp["pts"])
+    assert np.array_equal(got, QueryStream("cpu", 256).fetch(fns["norm"], inp["pts"]))
+    empty = QueryStream("cpu", 256, mesh).run(fns["norm"], pts[:0])
     assert empty.shape == (0,)
     return {"norm": got}
 
 
 def case_async_chunks(inp, rank, world, mesh):
-    """eval_in_chunks_async split over the ranks equals the unsharded stream
-    bit for bit, on float, bool and int8 outputs; so do the evaluator's int8
+    """QueryStream.start split over the ranks equals the unsharded stream bit
+    for bit, on float, bool and int8 outputs; so do the evaluator's int8
     unit gradients by grid id (`grad_i8_gid_async`, the marching query)."""
-    from surfd_tpu_torch.geometry.grid import eval_in_chunks, eval_in_chunks_async
+    from surfd_tpu_torch.geometry import QueryStream
 
     fns = {"norm": lambda p: p.norm(dim=-1), "bool": lambda p: p[:, 0] > 0.1 * p[:, 1],
            "int8": lambda p: torch.round(p * 100.0).to(torch.int8)}
     out = {}
     for chunk in (256, 300, 8192):
         for name, fn in fns.items():
-            want = eval_in_chunks(fn, inp["pts"], chunk, device="cpu")
-            pending = eval_in_chunks_async(fn, inp["pts"], chunk, device="cpu", mesh=mesh)
+            want = QueryStream("cpu", chunk).fetch(fn, inp["pts"])
+            pending = QueryStream("cpu", chunk, mesh).start(fn, inp["pts"])
             got = pending()
             assert got.dtype == want.dtype and np.array_equal(got, want), (name, chunk)
             out[f"{name}_{chunk}"] = got
     udf = _udf(inp, inp["latent"])
     gids = inp["gids"]
-    want = udf.grad_i8_gid(gids, 48, -1.0, 2.0 / 47)
-    got = udf.grad_i8_gid_async(gids, 48, -1.0, 2.0 / 47, mesh=mesh)()
+    want = udf.grad_i8_gid_async(gids, 48, -1.0, 2.0 / 47, udf.queries)()
+    got = udf.grad_i8_gid_async(gids, 48, -1.0, 2.0 / 47,
+                                QueryStream("cpu", udf.chunk, mesh))()
     assert got.dtype == np.int8 and np.array_equal(got, want)
     out["grad_i8"] = got
     return out
