@@ -121,16 +121,18 @@ Phases, each fatal on failure:
      kept step's gradients, the params and every BatchNorm running buffer
      within AE_BARS; five planted faults (TF32 on, the coordinate gradient
      without create_graph, the decoder's batch statistics detached, momentum
-     0.9 on the batch's side, the buffers kept after the skip) must each fail
-     their bar; the step timed at B 8 x 20,000 queries (ms a step, peak
-     memory, device busy share, kernels a step, the top kernels); then the
+     0.9 on the batch's side, both on the fused CBN unit's entry, the buffers
+     kept after the skip) must each fail their bar; the step timed at B 8 x
+     20,000 queries (ms a step, peak memory, device busy share, kernels a
+     step, the top kernels); then the
      CLI chain in subprocesses: preprocess_udfs on 14 meshes written with
      numpy (the sheet fixture's 128^3 extraction among them) at its
      defaults (both splits at once), train_ae --config deepfashion3d --curriculum for 6 epochs,
      --resume to 10 (the curriculum grows 8 -> 11 -> 12, the steps resume),
      its npz pair equal to its last checkpoint, and export_meshes at 128^3
-     reading the run (K1 f32 and bf16 launched); no hand-written kernel runs
-     in the train step itself;
+     reading the run (K1 f32 and bf16 launched); in the train step (and
+     train_ae) only the decoder's fused CBN + ReLU unit launches, 11 forward,
+     22 backward and 11 backward2 calls a step;
   10. data parallel and the JAX package's last modules (phase `parallel`):
      a world-1 NCCL process group and make_mesh(); phase 8's 3 train steps
      under DDP against the same steps without it (TRAIN_BARS; bit-equality
@@ -249,6 +251,14 @@ CONV_TPU = ("none: the JAX package left the denoiser's convolutions to XLA "
 # The conv kernel against conv1d_ref (cuDNN in f32): max abs error over max
 # |plain|. f32 sums of up to 5,376 terms in another order read ~1e-7.
 CONV_BAR = 1e-5
+CBN_SRC = "surfd_tpu_torch/ops/csrc/cbn_train.cu"
+CBN_TPU = ("none: the JAX package left the decoder's train-mode BatchNorm to XLA "
+           "(flax nn.BatchNorm in surfd_tpu/models/decoder.py)")
+CBN_SHAPE = (8, 20_000, 512)  # the AE step's decoder activation (cell 4)
+# The unit's kernels against its plain stages on the card (the backward
+# stages handed the kernel's statistics): max abs error over max |plain|, as
+# in tests/test_torch_cbn_train_cuda.py.
+CBN_BAR = 5e-5
 LAP_SRC = "surfd_tpu_torch/ops/csrc/mesh_laplacian.cu"
 LAP_TPU = ("none: the JAX package smooths in float64 numpy "
            "(surfd_tpu/geometry/mesh_ops.py:184-200, laplacian_smooth)")
@@ -525,6 +535,7 @@ def phase_kernels(dev, hgmma=None):
     rows += kernels_bwd(dev, k2_calls)
     rows.append(kernels_laplacian(dev))
     rows += kernels_conv1d(dev)
+    rows.append(kernels_cbn(dev))
     return rows, k2_calls
 
 
@@ -691,6 +702,85 @@ def conv1d_site_times(graph, sites, shape) -> None:
         med = statistics.median(durs)
         log(f"[kernels]   {key}: {med:.2f} us, bound {b_us:.2f} us, {med / b_us:.2f}x "
             f"({len(durs) // 3} sites)")
+
+
+def kernels_cbn(dev) -> dict:
+    """The AE decoder's fused train-mode CBN + ReLU at the AE step's shape
+    (CBN_SHAPE): each stage's kernels against the plain stages, two runs
+    bit-equal; the unit as the step runs it (the forward, the create-graph
+    input gradient, then the backward of both: one forward, two backward,
+    one backward2) timed (CUDA events, in turns) against the composed
+    batch_norm + γ/β + ReLU under autograd and the plain stages, beside its
+    bound in bytes (x, gh and a read once and h, gx, ggh and the x gradient
+    written once a stage: 13 activations); each stage timed alone against
+    the activations its passes move (3, 5 and 8)."""
+    from surfd_tpu_torch.models.layers import batch_norm
+    from surfd_tpu_torch.ops import cbn_train as cb
+
+    B, Q, C = CBN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(CBN_SHAPE, generator=g, device=dev) + torch.linspace(-1, 2, C, device=dev)
+    gamma = 1.0 + 0.3 * torch.randn((B, C), generator=g, device=dev)
+    beta = 0.2 * torch.randn((B, C), generator=g, device=dev)
+    gh, a = (torch.randn(CBN_SHAPE, generator=g, device=dev) for _ in range(2))
+    ga, ba = torch.zeros_like(gamma), torch.zeros_like(beta)  # as the AE step hands them
+    bn = torch.nn.BatchNorm1d(C, affine=False).to(dev)
+
+    def gap(u, v):
+        return float((u - v).abs().max()) / float(v.abs().max())
+
+    h, stats = cb._forward(x, gamma, beta, bn)
+    errs = {"forward": gap(h, cb.forward_ref(x, gamma, beta, bn.eps)[0])}
+    for name, kern, plain in (("backward", cb._backward, cb.backward_ref),
+                              ("backward2", cb._backward2, cb.backward2_ref)):
+        args = (gh, x, gamma, beta, stats) if name == "backward" else (
+            a, ga, ba, gh, x, gamma, beta, stats)
+        got, again, want = kern(*args), kern(*args), plain(*args)
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise RuntimeError(f"cbn_train {name}: two runs differ")
+        errs[name] = max(gap(u, v) for u, v in zip(got, want))
+    if not max(errs.values()) <= CBN_BAR:
+        raise RuntimeError(f"cbn_train: errors {errs} over the bar {CBN_BAR}")
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+
+    def step(unit):
+        def run():
+            out = unit(*leaves)
+            gx = torch.autograd.grad(out, leaves[0], gh, create_graph=True)[0]
+            return torch.autograd.grad((gx, out), leaves, (a, gh))
+        return run
+
+    fused = step(lambda x, g, b: cb.cbn_relu_train(x, g, b, bn))
+    composed = step(lambda x, g, b: torch.relu(g[:, None] * batch_norm(x, bn, True)
+                                               + b[:, None]))
+
+    def plain():
+        _, st, _ = cb.forward_ref(x, gamma, beta, bn.eps)
+        cb.backward_ref(gh, x, gamma, beta, st)
+        cb.backward_ref(gh, x, gamma, beta, st)
+        cb.backward2_ref(a, ga, ba, gh, x, gamma, beta, st)
+
+    ms, lib_ms = time_ms_turns([fused, composed], reps=10)
+    plain_ms = time_ms(plain, reps=3)
+    act = 4.0 * B * Q * C
+    stage = dict(zip(("forward", "backward", "backward2"), time_ms_turns([
+        lambda: cb._forward(x, gamma, beta, bn),
+        lambda: cb._backward(gh, x, gamma, beta, stats),
+        lambda: cb._backward2(a, ga, ba, gh, x, gamma, beta, stats)], reps=20)))
+    moved = {"forward": 3, "backward": 5, "backward2": 8}
+    b_ms, b_by = bound(13 * act, 0.0, "f32")
+    row = {"name": "cbn_train", "keys": [f"cbn_train_{k}" for k in moved], "route": "cuda",
+           "source": CBN_SRC, "replaces": CBN_TPU, "launches": 0,
+           "max_abs_err": max(errs.values()), "errors": errs, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "stage_ms": stage,
+           "stage_tb_per_s": {k: moved[k] * act / (stage[k] * 1e9) for k in moved},
+           "shape": f"B={B} Q={Q} C={C}, forward + 2 backward + backward2"}
+    log(f"[kernels] cbn_train {CBN_SHAPE}: errors {json.dumps(errs)} (bar {CBN_BAR:g}), two runs "
+        f"equal; the step's unit {ms:.3f} ms, composed under autograd {lib_ms:.3f} ms, plain "
+        f"stages {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); stages "
+        + ", ".join(f"{k} {stage[k]:.3f} ms ({row['stage_tb_per_s'][k]:.2f} TB/s over "
+                    f"{moved[k]} activations)" for k in moved))
+    return row
 
 
 def kernels_laplacian(dev, iterations: int = 3) -> dict:
@@ -976,6 +1066,7 @@ _CHILD_LOCK = threading.Lock()  # run_clis adds from several threads
 def reset_counts():
     from surfd_tpu_torch.ops import GraphedCall
     from surfd_tpu_torch.ops import attention_kernel as ak
+    from surfd_tpu_torch.ops import cbn_train as cb
     from surfd_tpu_torch.ops import conv1d_kernel as ck
     from surfd_tpu_torch.ops import decoder_kernel as dk
     from surfd_tpu_torch.ops import mesh_laplacian as ml
@@ -993,6 +1084,8 @@ def reset_counts():
     ck.conv1d.launches.clear()
     ck.conv1d_ref.calls = 0
     GraphedCall.captures = GraphedCall.replays = 0
+    cb.cbn_relu_train.launches.update(forward=0, backward=0, backward2=0)
+    cb.forward_ref.calls = cb.backward_ref.calls = cb.backward2_ref.calls = 0
 
 
 def launch_counts() -> dict:
@@ -2814,6 +2907,27 @@ AE_FAULTS = {"TF32 on": "grad_global",
              "momentum 0.9 on the batch's side": "buffers",
              "BatchNorm buffers kept after a skipped step": "buffers"}
 AE_TIMED = 10  # steps timed at the preset's batch
+AE_CBN_UNITS = 2 * AE_LAYERS + 1  # the decoder's conditional BatchNorm + ReLU units
+
+
+def ae_cbn_calls(steps: int) -> dict:
+    """The fused CBN unit's stage calls in `steps` AE steps on the card: each
+    unit's forward, its backward in the create-graph gradient and in
+    loss.backward(), and its second derivative there."""
+    n = AE_CBN_UNITS * steps
+    return {"cbn_train_forward": n, "cbn_train_backward": 2 * n, "cbn_train_backward2": n}
+
+
+def launches_since(before: dict) -> dict:
+    """The launch rows of kernel_calls() that grew since `before` (an
+    earlier kernel_calls()), by how much."""
+    from surfd_tpu_torch.ops import kernel_calls
+
+    now = kernel_calls()
+    if now["plain_calls"] != before["plain_calls"]:
+        raise RuntimeError(f"plain-version calls: {now['plain_calls']} vs {before['plain_calls']}")
+    return {k: n - before["launches"].get(k, 0) for k, n in now["launches"].items()
+            if n != before["launches"].get(k, 0)}
 
 
 def ae_batches(B: int, Q: int, steps: int, seed: int) -> list:
@@ -2934,20 +3048,17 @@ def within_ae_bars(gaps: dict) -> bool:
         float(k == AE_NAN_STEP) for k in range(4)]
 
 
-def _bn_stats_detached(x, bn, training):
-    """The decoder's train-mode BatchNorm with its batch statistics cut out
-    of the graph (the running buffers move as the sound one moves them)."""
-    from surfd_tpu_torch.models.layers import batch_norm
-
-    if not training:
-        return batch_norm(x, bn, training)
+def _cbn_stats_detached(x, gamma, beta, bn):
+    """The decoder's train-mode CBN + ReLU unit (the fused unit's entry) with
+    the batch statistics cut out of the graph (the running buffers move as
+    the sound one moves them)."""
     flat = x.reshape(-1, x.shape[-1])
     mean = flat.mean(0).detach()
     var = torch.clamp(flat.square().mean(0) - mean.square(), min=0.0).detach()
     with torch.no_grad():
         bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
         bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
-    return (x - mean) * torch.rsqrt(var + bn.eps)
+    return torch.relu(gamma[:, None] * ((x - mean) * torch.rsqrt(var + bn.eps)) + beta[:, None])
 
 
 @contextlib.contextmanager
@@ -2956,12 +3067,17 @@ def planted_ae_fault(name: str):
     from unittest import mock
 
     from surfd_tpu_torch.models import decoder, dgcnn, layers
+    from surfd_tpu_torch.ops import cbn_train
     from surfd_tpu_torch.training import ae_trainer
     from surfd_tpu_torch.utils import use_full_f32
 
     def momentum_09(x, bn, training):  # torch's 0.1 read as flax's 0.9
         bn.momentum = 0.9
         return layers.batch_norm(x, bn, training)
+
+    def cbn_momentum_09(x, gamma, beta, bn):
+        bn.momentum = 0.9
+        return cbn_train.cbn_relu_train(x, gamma, beta, bn)
 
     with contextlib.ExitStack() as undo:
         undo.callback(use_full_f32)
@@ -2971,11 +3087,11 @@ def planted_ae_fault(name: str):
             undo.enter_context(mock.patch.object(
                 ae_trainer, "coords_gradient",
                 lambda u, c: torch.autograd.grad(u, c, torch.ones_like(u), retain_graph=True)[0]))
-        elif name == "batch statistics detached in the decoder":
-            undo.enter_context(mock.patch.object(decoder, "batch_norm", _bn_stats_detached))
+        elif name == "batch statistics detached in the decoder":  # the fused unit's entry
+            undo.enter_context(mock.patch.object(decoder, "cbn_relu_train", _cbn_stats_detached))
         elif name == "momentum 0.9 on the batch's side":
-            for mod in (decoder, dgcnn):
-                undo.enter_context(mock.patch.object(mod, "batch_norm", momentum_09))
+            undo.enter_context(mock.patch.object(decoder, "cbn_relu_train", cbn_momentum_09))
+            undo.enter_context(mock.patch.object(dgcnn, "batch_norm", momentum_09))
         elif name == "BatchNorm buffers kept after a skipped step":
             undo.enter_context(mock.patch.object(ae_trainer, "snapshot_buffers",
                                                  lambda model: []))
@@ -3072,9 +3188,10 @@ def time_ae_steps(dev, init: dict) -> dict:
     """The AE step at the preset's batch (AE_B x 10,000 cloud points x AE_Q
     queries) from `init`: AE_TIMED steps on the host clock after 2 of
     warm-up, with the peak memory allocated; then 5 more under
-    torch.profiler (device busy share, kernels a step, the top kernels). No
-    hand-written kernel runs in it (K1 is the folded eval decoder of
-    extraction; the step runs the unfolded one), and no plain version."""
+    torch.profiler (device busy share, kernels a step, the top kernels). Of
+    the hand-written kernels only the decoder's fused CBN unit runs in it
+    (K1 is the folded eval decoder of extraction; the step runs the unfolded
+    one), and no plain version."""
     from surfd_tpu_torch.training import (
         AutoEncoder,
         create_train_state,
@@ -3137,9 +3254,11 @@ def phase_ae(dev, ref):
     got = ae_run(dev, ref["init"])
     torch.cuda.synchronize()
     out["card_s"] = time.perf_counter() - t0
-    # the step runs the unfolded decoder, not K1 (nor its plain version)
-    if kernel_calls() != calls:
-        raise RuntimeError(f"ae: the train step called a kernel: {kernel_calls()} vs {calls}")
+    # the step runs the unfolded decoder, not K1 (nor its plain version): of
+    # the kernels only the fused CBN unit, each step
+    if launches_since(calls) != ae_cbn_calls(4):
+        raise RuntimeError(f"ae: the train steps launched {launches_since(calls)}, want "
+                           f"{ae_cbn_calls(4)}")
     gaps = out["sound"] = ae_gaps(got, ref)
     log(f"[ae] card vs CPU, 4 steps (step {AE_NAN_STEP + 1} a NaN cloud) at B {AE_CHECK_B} x "
         f"{RECON_POINTS} points x {AE_CHECK_Q} queries ({out['card_s']:.2f}s, CPU "
@@ -3160,9 +3279,10 @@ def phase_ae(dev, ref):
     log(f"[ae] (a) with the faults: {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
+    calls = kernel_calls()
     out["timed"] = time_ae_steps(dev, ref["init"])
-    if kernel_calls() != calls:
-        raise RuntimeError(f"ae: the timed steps called a kernel: {kernel_calls()}")
+    if launches_since(calls) != ae_cbn_calls(2 + AE_TIMED + 2 * 5):  # _profiled runs twice
+        raise RuntimeError(f"ae: the timed steps launched {launches_since(calls)}")
     torch.cuda.empty_cache()  # the step's ~44 GiB go back to the card for the CLIs
     log(f"[ae] (b): {time.perf_counter() - t0:.1f}s")
 
@@ -3183,8 +3303,9 @@ def phase_ae(dev, ref):
         for label, extra in (("train_ae", ["--num_epochs", "6"]),
                              ("train_ae_resume", ["--num_epochs", "10", "--resume"])):
             walls[label], lines, launches = run_cli("train_ae", argv + extra, "ae")
-            if any(launches.values()):
-                raise RuntimeError(f"train_ae launched kernels: {launches}")
+            if not launches.get("cbn_train_backward2") or any(
+                    n for k, n in launches.items() if not k.startswith("cbn_train_")):
+                raise RuntimeError(f"train_ae launched {launches}: want the CBN unit's alone")
             with open(os.path.join(run, "training_idxes.txt")) as f:
                 sizes.append(len(f.read().split()))
             steps.append(Checkpointer(os.path.join(run, "ckpt")).latest_step())
@@ -3722,7 +3843,8 @@ def main() -> int:
                                f"({plain_calls()} calls)")
         by_path[name] = launch_counts()
     for row in rows:
-        row["launches_by_path"] = {p: c.get(row["name"], 0) for p, c in by_path.items()}
+        row["launches_by_path"] = {p: sum(c.get(k, 0) for k in row.get("keys", [row["name"]]))
+                                   for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     if all(p in phases for p in MAIN_PATH):
         unused = [r["name"] for r in rows if r["launches"] == 0]

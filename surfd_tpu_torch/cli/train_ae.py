@@ -15,8 +15,9 @@ which `export_meshes`, `train_diffusion --ae_dir`, the generation CLIs and
 the JAX package's `load_params_npz` read. `--resume` continues from the
 latest checkpoint and the saved curriculum up to --num_epochs in all; a
 save_dir that holds a checkpoint needs it. The last stderr line is the
-process's kernel launches (`kernel calls: {...}`): none, as the step runs no
-hand-written kernel.
+process's kernel launches (`kernel calls: {...}`): on CUDA those of the
+decoder's fused CBN + ReLU unit (`cbn_train_*`), the step's one hand-written
+kernel.
 """
 
 from __future__ import annotations

@@ -13,7 +13,10 @@ On the main path the values come from the folded kernel
 graph that torch autograd differentiates for the near-band gradients. In
 train mode (`train_ae`) it normalises by the batch's statistics over all
 points, as flax's BatchNorm does, and moves the running statistics
-(`models.layers.batch_norm`).
+(`models.layers.batch_norm`). Each conditional BatchNorm is followed by a
+ReLU (`ConditionalBatchNorm.relu`): on a CUDA float32 input in train mode
+the pair is one unit with hand-written first and second derivatives
+(`ops/cbn_train.py`); eval mode and the CPU keep the composed path.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.cbn_train import cbn_relu_train
 
 # NeRF positional encoding [x, sin(f0·x), cos(f0·x), sin(f1·x), ...] → 63,
 # frequencies 2^0..2^9; the folded kernel's encoding is the same function.
@@ -60,12 +65,25 @@ class ConditionalBatchNorm(nn.Module):
             beta = beta[:, None, :]
         return gamma * batch_norm(x, self.bn, self.training) + beta
 
+    def relu(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """relu(self(x, cond)); a (B, N, C) float32 CUDA input in train mode
+        with one latent per item takes the fused unit `cbn_relu_train`."""
+        if fused(self.training, x, cond):
+            return cbn_relu_train(x, self.conv_gamma(cond), self.conv_beta(cond), self.bn)
+        return torch.relu(self(x, cond))
+
     def fold(self, latent: torch.Tensor):
         """(a, c) with cbn(x) = a⊙x + c for one latent (D,)."""
         gamma = self.conv_gamma(latent)
         beta = self.conv_beta(latent)
         inv = gamma / torch.sqrt(self.bn.running_var + self.bn.eps)
         return inv, beta - self.bn.running_mean * inv
+
+
+def fused(training: bool, x: torch.Tensor, cond: torch.Tensor) -> bool:
+    """Whether a conditional BatchNorm + ReLU takes the fused unit."""
+    return (training and x.is_cuda and x.dtype == torch.float32 and x.dim() == 3
+            and cond.dim() == 2)
 
 
 class ConditionalResnetBlock(nn.Module):
@@ -79,8 +97,8 @@ class ConditionalResnetBlock(nn.Module):
         self.fc_1 = Conv1x1(features, features)
 
     def forward(self, x, cond):
-        net = self.fc_0(torch.relu(self.bn_0(x, cond)))
-        dx = self.fc_1(torch.relu(self.bn_1(net, cond)))
+        net = self.fc_0(self.bn_0.relu(x, cond))
+        dx = self.fc_1(self.bn_1.relu(net, cond))
         return x + dx
 
 
@@ -105,8 +123,7 @@ class CbnDecoder(nn.Module):
         net = self.fc_p(coords_emb)
         for block in self.blocks:
             net = block(net, latent)
-        net = self.bn(net, latent)
-        return self.fc_out(torch.relu(net))[..., 0]
+        return self.fc_out(self.bn.relu(net, latent))[..., 0]
 
     @torch.no_grad()
     def random_init_(self, generator: torch.Generator) -> "CbnDecoder":

@@ -3,18 +3,22 @@
 K1 `decoder_kernel.folded_udf` (csrc/folded_mlp.cu, csrc/folded_mlp_bf16.cu),
 K2 `attention_kernel.qkv_attention` (csrc/qkv_attention.cu) and its gradient
 K2-bwd `attention_kernel.qkv_attention_bwd` (csrc/qkv_attention_bwd.cu), the
-denoiser's convolutions `conv1d_kernel.conv1d` (csrc/conv1d_stream.cu) and the
-cleanup's `mesh_laplacian.laplacian_smooth` (csrc/mesh_laplacian.cu). The library is
-built by `_build` at first use on a CUDA tensor, never at import. `cuda_graph.GraphedCall`
-replays the denoiser's call from a CUDA graph.
+denoiser's convolutions `conv1d_kernel.conv1d` (csrc/conv1d_stream.cu), the
+cleanup's `mesh_laplacian.laplacian_smooth` (csrc/mesh_laplacian.cu) and the AE
+decoder's train-mode conditional BatchNorm + ReLU `cbn_train.cbn_relu_train`
+(csrc/cbn_train.cu). The library is built by `_build` at first use on a CUDA
+tensor, never at import. `cuda_graph.GraphedCall` replays the denoiser's call
+from a CUDA graph.
 """
 
+from . import cbn_train
 from .attention_kernel import (
     qkv_attention,
     qkv_attention_bwd,
     qkv_attention_bwd_ref,
     qkv_attention_ref,
 )
+from .cbn_train import cbn_relu_train
 from .conv1d_kernel import conv1d, conv1d_ref
 from .cuda_graph import GraphedCall
 from .decoder_kernel import (
@@ -29,7 +33,7 @@ from .mesh_laplacian import laplacian_smooth, laplacian_smooth_ref
 
 __all__ = [
     "qkv_attention", "qkv_attention_bwd", "qkv_attention_bwd_ref", "qkv_attention_ref",
-    "conv1d", "conv1d_ref",
+    "cbn_relu_train", "conv1d", "conv1d_ref",
     "FoldedDecoder", "fold_decoder",
     "folded_udf", "folded_udf_mixed_ref", "folded_udf_ref", "posenc_f32",
     "laplacian_smooth", "laplacian_smooth_ref", "GraphedCall", "kernel_calls",
@@ -38,8 +42,10 @@ __all__ = [
 
 def kernel_calls() -> dict:
     """This process's kernel launches, K1 by precision, K2 and K2-bwd by
-    (T, c), the convolutions by (K, stride) and the Laplacian, under the row names of chip_smoke.py's kernels
-    line (those replayed from a CUDA graph included), the CUDA graphs
+    (T, c), the convolutions by (K, stride), the Laplacian and the CBN unit's
+    stages (`cbn_train_<stage>`, three kernels a call; only once launched),
+    under the row names of chip_smoke.py's kernels line (those replayed from
+    a CUDA graph included), the CUDA graphs
     captured and replayed (`cuda_graph_capture`, `cuda_graph_replay`), and
     its calls of the kernels' plain versions."""
     launches = {f"folded_mlp_{p}": n for p, n in folded_udf.launches.items()}
@@ -49,9 +55,12 @@ def kernel_calls() -> dict:
     launches.update({f"conv1d_k{k}_s{s}": n for (k, s), n in conv1d.launches.items()})
     if laplacian_smooth.launches:  # as K2's rows: only once launched
         launches["mesh_laplacian"] = laplacian_smooth.launches
+    launches.update({f"cbn_train_{s}": n for s, n in cbn_relu_train.launches.items() if n})
     if GraphedCall.captures:
         launches["cuda_graph_capture"] = GraphedCall.captures
         launches["cuda_graph_replay"] = GraphedCall.replays
     plain = (folded_udf_ref.calls + folded_udf_mixed_ref.calls + qkv_attention_ref.calls
-             + qkv_attention_bwd_ref.calls + conv1d_ref.calls + laplacian_smooth_ref.calls)
+             + qkv_attention_bwd_ref.calls + conv1d_ref.calls + laplacian_smooth_ref.calls
+             + cbn_train.forward_ref.calls + cbn_train.backward_ref.calls
+             + cbn_train.backward2_ref.calls)
     return {"launches": launches, "plain_calls": plain}

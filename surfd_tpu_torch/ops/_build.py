@@ -115,6 +115,17 @@ def load() -> ctypes.CDLL:
             # corners, buf0, buf1, bad, stream
             lib.surfd_mesh_laplacian.argtypes = ([vp, vp, i64, i64, i32, ctypes.c_double]
                                                  + [vp] * 10)
+            lib.surfd_cbn_forward.restype = i32
+            # x, gamma, beta, running mean and var, stats, h, scratch, B, Q, C, slab,
+            # vec, eps, momentum, stream
+            lib.surfd_cbn_forward.argtypes = [vp] * 8 + [i32] * 5 + [f32, f32, vp]
+            lib.surfd_cbn_backward.restype = i32
+            # x, gh, gamma, beta, stats, gx, grads, scratch, B, Q, C, slab, vec, stream
+            lib.surfd_cbn_backward.argtypes = [vp] * 8 + [i32] * 5 + [vp]
+            lib.surfd_cbn_backward2.restype = i32
+            # x, gh, a, gamma, beta, ga, ba, stats, ggh, gx, ggamma, scratch, B, Q, C,
+            # slab, vec, stream
+            lib.surfd_cbn_backward2.argtypes = [vp] * 12 + [i32] * 5 + [vp]
             _lib = lib
         return _lib
 

@@ -13,9 +13,12 @@ backward through both graphs → AdamW at the annealed lr, unless the loss or
 the gradient norm is not finite; a skipped step also puts the BatchNorm
 running statistics back.
 
-No hand-written kernel runs in the step or the eval: K1 is the folded
-eval-mode decoder of extraction. The matmuls are cuBLAS's (f32, TF32 off),
-as the JAX step runs its unfolded decoder and DGCNN through XLA.
+On CUDA the decoder's train-mode conditional BatchNorm + ReLU units run as
+one hand-written unit each (`ops/cbn_train.py`: forward, backward and the
+backward's backward as kernels); nothing else hand-written runs in the step
+or the eval (K1 is the folded eval-mode decoder of extraction). The matmuls
+are cuBLAS's (f32, TF32 off), as the JAX step runs its unfolded decoder and
+DGCNN through XLA.
 """
 
 from __future__ import annotations

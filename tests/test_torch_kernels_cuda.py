@@ -465,7 +465,10 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
     """The AE step on the card (a small AutoEncoder, B 2): a NaN cloud is
     skipped, and the params, AdamW's moments and every BatchNorm running
     buffer, which the train-mode forward moved on the card, are as before;
-    a good batch then moves them. No hand-written kernel launches."""
+    a good batch then moves them. Of the hand-written kernels only the
+    decoder's fused CBN + ReLU unit launches: each of its 5 units a step
+    once forward, twice backward (the create-graph gradient and
+    loss.backward) and once backward2, the skipped step too."""
     from surfd_tpu_torch.ops import kernel_calls
     from surfd_tpu_torch.training import (
         AETrainConfig,
@@ -487,7 +490,12 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
                 "udf": rng.uniform(0, 0.1, (2, 512)).astype(np.float32),
                 "gradients": rng.normal(size=(2, 512, 3)).astype(np.float32)}
 
-    launches = sum(kernel_calls()["launches"].values())
+    def split():
+        calls = kernel_calls()["launches"]
+        return ({k: n for k, n in calls.items() if k.startswith("cbn_train_")},
+                sum(n for k, n in calls.items() if not k.startswith("cbn_train_")))
+
+    cbn, launches = split()
     assert step(state, batch())["nonfinite_skipped"] == 0.0
     bad = batch()
     bad["pcd"][0, 5] = np.nan
@@ -504,7 +512,11 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
     assert step(state, batch())["nonfinite_skipped"] == 0.0
     assert not torch.equal(ae.state_dict()["decoder.bn.bn.running_var"],
                            before["decoder.bn.bn.running_var"])
-    assert sum(kernel_calls()["launches"].values()) == launches
+    units = 2 * 2 + 1
+    assert split() == ({"cbn_train_forward": cbn.get("cbn_train_forward", 0) + 3 * units,
+                        "cbn_train_backward": cbn.get("cbn_train_backward", 0) + 6 * units,
+                        "cbn_train_backward2": cbn.get("cbn_train_backward2", 0) + 3 * units},
+                       launches)
 
 
 def _fixture_evaluator(cuda):
