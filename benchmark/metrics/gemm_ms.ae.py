@@ -1,0 +1,16 @@
+"""Trainer (the AE train step): the device ms a step of the decoder's 3xTF32
+GEMMs, the summed device durations (CUDA event pairs) of the program's
+`gemm.tf32x3` spans in the traced steps over the traced steps. None where
+the program keeps no such span (a program without the kernel)."""
+
+from benchmark.spans import in_session
+
+NAMES = {"gemm.tf32x3"}
+
+
+def read(run):
+    traced = run.get("traced", {})
+    steps = traced.get("steps")
+    vals = [s["device_ms"] for sess in traced.get("sessions", [])
+            for s in in_session(sess, NAMES) if s["device_ms"] is not None]
+    return sum(vals) / steps if vals and steps else None

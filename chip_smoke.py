@@ -6,7 +6,8 @@ Phases, each fatal on failure:
   1. print the card (nvidia-smi), build the CUDA kernels from ops/csrc and
      the host geometry library from native/ (set-up, outside the timings);
      count the tensor-core (HGMMA) instructions of each kernel with
-     cuobjdump: both K1 kernels (f32 3xTF32, bf16) must have some;
+     cuobjdump: both K1 kernels (f32 3xTF32, bf16) and the 3xTF32 GEMM
+     must have some;
   2. each kernel against its plain PyTorch version at main-path shapes (K2
      at latent 32 and 64; max abs error, kernel / plain / library time,
      bound; for K2 also the
@@ -33,7 +34,12 @@ Phases, each fatal on failure:
      (K, stride) group of one denoiser call's 98, and the whole call,
      captured as CUDA graphs and timed beside the weight-read bound, the
      plain version (cuDNN's default algorithms), cuDNN autotuned and the
-     input unfolded into a cuBLAS GEMM;
+     input unfolded into a cuBLAS GEMM; the AE decoder's fused CBN + ReLU
+     unit at the AE step's shape; the 3xTF32 GEMM in each form (NT, NN, TN)
+     at the AE step's 160,000 x 512 x 512 against float64 (GEMM_BAR, which
+     a planted single-pass TF32 product must fail; two calls bit-equal),
+     timed beside its bound, torch.matmul in f32 (the plain version and
+     cuBLAS) and cuBLAS in single-pass TF32 (a yardstick only);
   3. sampling: 1000 DDPM steps of the full-width MDM (random weights from a
      seed), B = 2, through make_cfg_model_fn (the CLIs' path: one CUDA graph
      captured, 999 replays), then eagerly through the MDM itself, in that
@@ -131,8 +137,10 @@ Phases, each fatal on failure:
      --resume to 10 (the curriculum grows 8 -> 11 -> 12, the steps resume),
      its npz pair equal to its last checkpoint, and export_meshes at 128^3
      reading the run (K1 f32 and bf16 launched); in the train step (and
-     train_ae) only the decoder's fused CBN + ReLU unit launches, 11 forward,
-     22 backward and 11 backward2 calls a step;
+     train_ae) only the decoder's fused CBN + ReLU unit and the 3xTF32 GEMM
+     launch: 11 forward, 22 backward and 11 backward2 calls a step, and 20
+     calls of each GEMM form (the 10 block projections' forward (NT),
+     create-graph gradient (NN), and backward: NN, NT and two TN);
   10. data parallel and the JAX package's last modules (phase `parallel`):
      a world-1 NCCL process group and make_mesh(); phase 8's 3 train steps
      under DDP against the same steps without it (TRAIN_BARS; bit-equality
@@ -251,6 +259,17 @@ CONV_TPU = ("none: the JAX package left the denoiser's convolutions to XLA "
 # The conv kernel against conv1d_ref (cuDNN in f32): max abs error over max
 # |plain|. f32 sums of up to 5,376 terms in another order read ~1e-7.
 CONV_BAR = 1e-5
+GEMM_SRC = "surfd_tpu_torch/ops/csrc/gemm_tf32x3.cu"
+GEMM_TPU = ("none: the JAX package left the decoder's matmuls to XLA (flax nn.Dense in "
+            "surfd_tpu/models/decoder.py); the port called cuBLAS in f32")
+# The AE step's three GEMMs (cell 4: 8 x 20,000 query rows, 512 channels):
+# (form, M, N, K)
+GEMM_SHAPES = (("nt", 160_000, 512, 512), ("nn", 160_000, 512, 512), ("tn", 512, 512, 160_000))
+# The 3xTF32 GEMM against float64 on the same f32 operands: max |C - C64|
+# over max |C64|, as in tests/test_torch_gemm_tf32x3_cuda.py. Sound 0.98e-6
+# to 1.06e-6 at GEMM_SHAPES, a single-pass TF32 product 2.8e-4 to 3.3e-4
+# (PERF.md's kernel table, an H100).
+GEMM_BAR = 2e-5
 CBN_SRC = "surfd_tpu_torch/ops/csrc/cbn_train.cu"
 CBN_TPU = ("none: the JAX package left the decoder's train-mode BatchNorm to XLA "
            "(flax nn.BatchNorm in surfd_tpu/models/decoder.py)")
@@ -377,6 +396,9 @@ def phase_build():
         if n == 0:
             raise RuntimeError(f"no HGMMA instruction in {K1_KERNEL[prec]}: "
                                f"K1 {prec} misses the tensor cores")
+    if not sum(n for fn, n in counts.items() if "gemm_tf32x3_kernel" in fn):
+        raise RuntimeError("no HGMMA instruction in gemm_tf32x3_kernel: the GEMM misses "
+                           "the tensor cores")
     t0 = time.perf_counter()
     native.load()
     log(f"[build] native geometry library in {time.perf_counter() - t0:.1f}s")
@@ -536,6 +558,7 @@ def phase_kernels(dev, hgmma=None):
     rows.append(kernels_laplacian(dev))
     rows += kernels_conv1d(dev)
     rows.append(kernels_cbn(dev))
+    rows += kernels_gemm(dev)
     return rows, k2_calls
 
 
@@ -781,6 +804,65 @@ def kernels_cbn(dev) -> dict:
         + ", ".join(f"{k} {stage[k]:.3f} ms ({row['stage_tb_per_s'][k]:.2f} TB/s over "
                     f"{moved[k]} activations)" for k in moved))
     return row
+
+
+def kernels_gemm(dev) -> list:
+    """The 3xTF32 GEMM in each form at the AE step's shapes (GEMM_SHAPES):
+    against float64 on the same f32 operands, within GEMM_BAR, which a
+    planted single-pass TF32 product (each operand rounded to tf32, the
+    products summed in float64) must fail; two calls bit-equal; timed (CUDA
+    events, in turns) beside torch.matmul in f32 (the plain version, which
+    is cuBLAS) and cuBLAS in single-pass TF32 (a yardstick only, never on
+    the path), and its bound (three tf32 products at the dense TF32 peak;
+    the operands read and the product written once)."""
+    from surfd_tpu_torch.ops import gemm_tf32x3 as gm
+    from surfd_tpu_torch.ops.decoder_kernel import round_tf32
+    from surfd_tpu_torch.utils import use_full_f32
+
+    def tf32_matmul(a, b):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return a @ b
+        finally:
+            use_full_f32()
+
+    def gap(u, v):
+        return float((u.double() - v).abs().max()) / float(v.abs().max())
+
+    rows = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for form, M, N, K in GEMM_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(6)
+        a = torch.randn((K, M) if form[0] == "t" else (M, K), generator=g, device=dev)
+        b = torch.randn((N, K) if form[1] == "t" else (K, N), generator=g, device=dev)
+        a, b = (a.t() if form[0] == "t" else a), (b.t() if form[1] == "t" else b)
+        want = a.double() @ b.double()
+        got = gm.mm_tf32x3(a, b)
+        if not torch.equal(got, gm.mm_tf32x3(a, b)):
+            raise RuntimeError(f"gemm_tf32x3 {form}: two calls differ")
+        err = gap(got, want)
+        planted = gap(round_tf32(a).double() @ round_tf32(b).double(), want)
+        cublas_tf32 = gap(tf32_matmul(a, b), want)
+        del want
+        if not err <= GEMM_BAR < planted:
+            raise RuntimeError(f"gemm_tf32x3 {form}: error {err:.3g}, planted single-pass TF32 "
+                               f"{planted:.3g}, against the bar {GEMM_BAR:g}")
+        ms, plain_ms, tf32_ms = time_ms_turns(
+            [lambda: gm.mm_tf32x3(a, b), lambda: gm.mm_ref(a, b), lambda: tf32_matmul(a, b)],
+            reps=10)
+        b_ms, b_by = bound(4.0 * (M * K + K * N + M * N), 2.0 * M * N * K, "tf32x3")
+        name = f"gemm_tf32x3_{form}"
+        rows.append({"name": name, "route": "cuda", "source": GEMM_SRC, "replaces": GEMM_TPU,
+                     "launches": 0, "max_abs_err": err, "planted_tf32_err": planted,
+                     "cublas_tf32_err": cublas_tf32, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": plain_ms,
+                     "library_tf32_ms": tf32_ms, "splits": gm.plan(M, N, K, sms)[0],
+                     "shape": f"M={M} N={N} K={K}, {form.upper()}"})
+        log(f"[kernels] {name} {M} x {N} x {K}: error {err:.3e} (bar {GEMM_BAR:g}; planted "
+            f"single-pass TF32 {planted:.3e}, cuBLAS TF32 {cublas_tf32:.3e}), two calls equal; "
+            f"{ms:.3f} ms ({100 * b_ms / ms:.1f} % of the bound {b_ms:.3f} ms, {b_by}), "
+            f"torch.matmul f32 (plain, cuBLAS) {plain_ms:.3f} ms, cuBLAS TF32 {tf32_ms:.3f} ms")
+    return rows
 
 
 def kernels_laplacian(dev, iterations: int = 3) -> dict:
@@ -1069,6 +1151,7 @@ def reset_counts():
     from surfd_tpu_torch.ops import cbn_train as cb
     from surfd_tpu_torch.ops import conv1d_kernel as ck
     from surfd_tpu_torch.ops import decoder_kernel as dk
+    from surfd_tpu_torch.ops import gemm_tf32x3 as gm
     from surfd_tpu_torch.ops import mesh_laplacian as ml
 
     CHILD_LAUNCHES.clear()
@@ -1086,6 +1169,8 @@ def reset_counts():
     GraphedCall.captures = GraphedCall.replays = 0
     cb.cbn_relu_train.launches.update(forward=0, backward=0, backward2=0)
     cb.forward_ref.calls = cb.backward_ref.calls = cb.backward2_ref.calls = 0
+    gm.mm_tf32x3.launches.update(nt=0, nn=0, tn=0)
+    gm.mm_ref.calls = 0
 
 
 def launch_counts() -> dict:
@@ -2908,14 +2993,19 @@ AE_FAULTS = {"TF32 on": "grad_global",
              "BatchNorm buffers kept after a skipped step": "buffers"}
 AE_TIMED = 10  # steps timed at the preset's batch
 AE_CBN_UNITS = 2 * AE_LAYERS + 1  # the decoder's conditional BatchNorm + ReLU units
+AE_GEMMS = 2 * AE_LAYERS  # the blocks' 512 x 512 projections, on the 3xTF32 GEMM
 
 
-def ae_cbn_calls(steps: int) -> dict:
-    """The fused CBN unit's stage calls in `steps` AE steps on the card: each
-    unit's forward, its backward in the create-graph gradient and in
-    loss.backward(), and its second derivative there."""
-    n = AE_CBN_UNITS * steps
-    return {"cbn_train_forward": n, "cbn_train_backward": 2 * n, "cbn_train_backward2": n}
+def ae_step_calls(steps: int) -> dict:
+    """The hand-written kernels' calls in `steps` AE steps on the card: the
+    fused CBN unit's stages (each unit's forward, its backward in the
+    create-graph gradient and in loss.backward(), and its second derivative
+    there) and the GEMM's forms (each projection's forward NT, create-graph
+    input gradient NN, and in loss.backward() the forward's input (NN) and
+    weight (TN) gradients and the gradient graph's (NT, TN))."""
+    n, p = AE_CBN_UNITS * steps, AE_GEMMS * steps
+    return {"cbn_train_forward": n, "cbn_train_backward": 2 * n, "cbn_train_backward2": n,
+            "gemm_tf32x3_nt": 2 * p, "gemm_tf32x3_nn": 2 * p, "gemm_tf32x3_tn": 2 * p}
 
 
 def launches_since(before: dict) -> dict:
@@ -3189,9 +3279,9 @@ def time_ae_steps(dev, init: dict) -> dict:
     queries) from `init`: AE_TIMED steps on the host clock after 2 of
     warm-up, with the peak memory allocated; then 5 more under
     torch.profiler (device busy share, kernels a step, the top kernels). Of
-    the hand-written kernels only the decoder's fused CBN unit runs in it
-    (K1 is the folded eval decoder of extraction; the step runs the unfolded
-    one), and no plain version."""
+    the hand-written kernels only the decoder's fused CBN unit and the
+    3xTF32 GEMM run in it (K1 is the folded eval decoder of extraction; the
+    step runs the unfolded one), and no plain version."""
     from surfd_tpu_torch.training import (
         AutoEncoder,
         create_train_state,
@@ -3255,10 +3345,10 @@ def phase_ae(dev, ref):
     torch.cuda.synchronize()
     out["card_s"] = time.perf_counter() - t0
     # the step runs the unfolded decoder, not K1 (nor its plain version): of
-    # the kernels only the fused CBN unit, each step
-    if launches_since(calls) != ae_cbn_calls(4):
+    # the kernels only the fused CBN unit and the GEMM, each step
+    if launches_since(calls) != ae_step_calls(4):
         raise RuntimeError(f"ae: the train steps launched {launches_since(calls)}, want "
-                           f"{ae_cbn_calls(4)}")
+                           f"{ae_step_calls(4)}")
     gaps = out["sound"] = ae_gaps(got, ref)
     log(f"[ae] card vs CPU, 4 steps (step {AE_NAN_STEP + 1} a NaN cloud) at B {AE_CHECK_B} x "
         f"{RECON_POINTS} points x {AE_CHECK_Q} queries ({out['card_s']:.2f}s, CPU "
@@ -3281,7 +3371,7 @@ def phase_ae(dev, ref):
     t0 = time.perf_counter()
     calls = kernel_calls()
     out["timed"] = time_ae_steps(dev, ref["init"])
-    if launches_since(calls) != ae_cbn_calls(2 + AE_TIMED + 2 * 5):  # _profiled runs twice
+    if launches_since(calls) != ae_step_calls(2 + AE_TIMED + 2 * 5):  # _profiled runs twice
         raise RuntimeError(f"ae: the timed steps launched {launches_since(calls)}")
     torch.cuda.empty_cache()  # the step's ~44 GiB go back to the card for the CLIs
     log(f"[ae] (b): {time.perf_counter() - t0:.1f}s")
@@ -3303,9 +3393,12 @@ def phase_ae(dev, ref):
         for label, extra in (("train_ae", ["--num_epochs", "6"]),
                              ("train_ae_resume", ["--num_epochs", "10", "--resume"])):
             walls[label], lines, launches = run_cli("train_ae", argv + extra, "ae")
-            if not launches.get("cbn_train_backward2") or any(
-                    n for k, n in launches.items() if not k.startswith("cbn_train_")):
-                raise RuntimeError(f"train_ae launched {launches}: want the CBN unit's alone")
+            if not launches.get("cbn_train_backward2") or not all(
+                    launches.get(f"gemm_tf32x3_{f}") for f in ("nt", "nn", "tn")) or any(
+                    n for k, n in launches.items()
+                    if not k.startswith(("cbn_train_", "gemm_tf32x3_"))):
+                raise RuntimeError(f"train_ae launched {launches}: want the CBN unit's and the "
+                                   f"GEMM's alone")
             with open(os.path.join(run, "training_idxes.txt")) as f:
                 sizes.append(len(f.read().split()))
             steps.append(Checkpointer(os.path.join(run, "ckpt")).latest_step())

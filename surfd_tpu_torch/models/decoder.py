@@ -16,7 +16,9 @@ points, as flax's BatchNorm does, and moves the running statistics
 (`models.layers.batch_norm`). Each conditional BatchNorm is followed by a
 ReLU (`ConditionalBatchNorm.relu`): on a CUDA float32 input in train mode
 the pair is one unit with hand-written first and second derivatives
-(`ops/cbn_train.py`); eval mode and the CPU keep the composed path.
+(`ops/cbn_train.py`); eval mode and the CPU keep the composed path. In
+train mode on CUDA the blocks' 512 × 512 projections run on the 3xTF32
+tensor-core GEMM `ops/gemm_tf32x3.py mm_tf32x3`, to any order of derivative.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cbn_train import cbn_relu_train
+from ..ops.gemm_tf32x3 import TILE as GEMM_TILE
+from ..ops.gemm_tf32x3 import mm_tf32x3
 
 # NeRF positional encoding [x, sin(f0·x), cos(f0·x), sin(f1·x), ...] → 63,
 # frequencies 2^0..2^9; the folded kernel's encoding is the same function.
@@ -36,7 +40,10 @@ from .layers import batch_norm
 
 
 class Conv1x1(nn.Module):
-    """Kernel-size-1 Conv1d parameters `(out, in, 1)`, applied channel-last."""
+    """Kernel-size-1 Conv1d parameters `(out, in, 1)`, applied channel-last;
+    in train mode a CUDA float32 input whose widths are multiples of the
+    kernel's tile (the blocks' 512 × 512 `fc_0` and `fc_1`) takes
+    `mm_tf32x3`, everything else `F.linear`."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -44,7 +51,17 @@ class Conv1x1(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight[:, :, 0], self.bias)
+        w = self.weight[:, :, 0]
+        if routed(self.training, x, w):
+            out = mm_tf32x3(x.reshape(-1, x.shape[-1]), w.t(), self.bias)
+            return out.reshape(*x.shape[:-1], w.shape[0])
+        return F.linear(x, w, self.bias)
+
+
+def routed(training: bool, x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """Whether a projection takes the 3xTF32 kernel `mm_tf32x3`."""
+    return (training and x.is_cuda and x.dtype == torch.float32
+            and weight.shape[0] % GEMM_TILE == 0 and weight.shape[1] % GEMM_TILE == 0)
 
 
 class ConditionalBatchNorm(nn.Module):

@@ -126,6 +126,11 @@ def load() -> ctypes.CDLL:
             # x, gh, a, gamma, beta, ga, ba, stats, ggh, gx, ggamma, scratch, B, Q, C,
             # slab, vec, stream
             lib.surfd_cbn_backward2.argtypes = [vp] * 12 + [i32] * 5 + [vp]
+            lib.surfd_gemm_tf32x3.restype = i32
+            # a, lda, a_kmajor, b, ldb, b_kmajor, bias, c, part, M, N, K, k_chunk,
+            # splits, vec, stream
+            lib.surfd_gemm_tf32x3.argtypes = ([vp, i64, i32, vp, i64, i32, vp, vp, vp]
+                                              + [i32] * 6 + [vp])
             _lib = lib
         return _lib
 

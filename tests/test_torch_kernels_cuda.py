@@ -466,9 +466,12 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
     skipped, and the params, AdamW's moments and every BatchNorm running
     buffer, which the train-mode forward moved on the card, are as before;
     a good batch then moves them. Of the hand-written kernels only the
-    decoder's fused CBN + ReLU unit launches: each of its 5 units a step
-    once forward, twice backward (the create-graph gradient and
-    loss.backward) and once backward2, the skipped step too."""
+    decoder's fused CBN + ReLU unit and the 3xTF32 GEMM launch, the skipped
+    step too: each of the 5 units a step once forward, twice backward (the
+    create-graph gradient and loss.backward) and once backward2; each of
+    the 4 block projections (128 wide, so that they take the GEMM) a step
+    twice in each form (forward NT, create-graph gradient NN; in
+    loss.backward NN, TN and the gradient graph's NT, TN)."""
     from surfd_tpu_torch.ops import kernel_calls
     from surfd_tpu_torch.training import (
         AETrainConfig,
@@ -478,7 +481,7 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
         make_optimizer,
     )
 
-    ae = init_ae(AETrainConfig(latent_size=8, hidden_dim=64, num_hidden_layers=2),
+    ae = init_ae(AETrainConfig(latent_size=8, hidden_dim=128, num_hidden_layers=2),
                  torch.Generator().manual_seed(0)).to(cuda)
     state = create_train_state(ae, make_optimizer(ae.parameters(), 1e-4))
     step = make_ae_train_step(ae)
@@ -492,8 +495,9 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
 
     def split():
         calls = kernel_calls()["launches"]
-        return ({k: n for k, n in calls.items() if k.startswith("cbn_train_")},
-                sum(n for k, n in calls.items() if not k.startswith("cbn_train_")))
+        ours = ("cbn_train_", "gemm_tf32x3_")
+        return ({k: n for k, n in calls.items() if k.startswith(ours)},
+                sum(n for k, n in calls.items() if not k.startswith(ours)))
 
     cbn, launches = split()
     assert step(state, batch())["nonfinite_skipped"] == 0.0
@@ -512,10 +516,12 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
     assert step(state, batch())["nonfinite_skipped"] == 0.0
     assert not torch.equal(ae.state_dict()["decoder.bn.bn.running_var"],
                            before["decoder.bn.bn.running_var"])
-    units = 2 * 2 + 1
+    units, projections = 2 * 2 + 1, 2 * 2
     assert split() == ({"cbn_train_forward": cbn.get("cbn_train_forward", 0) + 3 * units,
                         "cbn_train_backward": cbn.get("cbn_train_backward", 0) + 6 * units,
-                        "cbn_train_backward2": cbn.get("cbn_train_backward2", 0) + 3 * units},
+                        "cbn_train_backward2": cbn.get("cbn_train_backward2", 0) + 3 * units,
+                        **{f"gemm_tf32x3_{f}": cbn.get(f"gemm_tf32x3_{f}", 0) + 6 * projections
+                           for f in ("nt", "nn", "tn")}},
                        launches)
 
 
