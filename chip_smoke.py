@@ -39,7 +39,11 @@ Phases, each fatal on failure:
      at the AE step's 160,000 x 512 x 512 against float64 (GEMM_BAR, which
      a planted single-pass TF32 product must fail; two calls bit-equal),
      timed beside its bound, torch.matmul in f32 (the plain version and
-     cuBLAS) and cuBLAS in single-pass TF32 (a yardstick only);
+     cuBLAS) and cuBLAS in single-pass TF32 (a yardstick only); the DGCNN
+     encoder's train-mode edge convolution unit at the AE step's four
+     blocks against its plain versions (EDGECONV_BARS; two runs bit-equal),
+     forward and backward timed beside the composed path, the plain
+     versions and its bound;
   3. sampling: 1000 DDPM steps of the full-width MDM (random weights from a
      seed), B = 2, through make_cfg_model_fn (the CLIs' path: one CUDA graph
      captured, 999 replays), then eagerly through the MDM itself, in that
@@ -127,7 +131,8 @@ Phases, each fatal on failure:
      kept step's gradients, the params and every BatchNorm running buffer
      within AE_BARS; five planted faults (TF32 on, the coordinate gradient
      without create_graph, the decoder's batch statistics detached, momentum
-     0.9 on the batch's side, both on the fused CBN unit's entry, the buffers
+     0.9 on the batch's side, on the fused CBN unit's and the edge
+     convolution unit's entries, the buffers
      kept after the skip) must each fail their bar; the step timed at B 8 x
      20,000 queries (ms a step, peak memory, device busy share, kernels a
      step, the top kernels); then the
@@ -137,10 +142,12 @@ Phases, each fatal on failure:
      --resume to 10 (the curriculum grows 8 -> 11 -> 12, the steps resume),
      its npz pair equal to its last checkpoint, and export_meshes at 128^3
      reading the run (K1 f32 and bf16 launched); in the train step (and
-     train_ae) only the decoder's fused CBN + ReLU unit and the 3xTF32 GEMM
-     launch: 11 forward, 22 backward and 11 backward2 calls a step, and 20
-     calls of each GEMM form (the 10 block projections' forward (NT),
-     create-graph gradient (NN), and backward: NN, NT and two TN);
+     train_ae) only the decoder's fused CBN + ReLU unit, the 3xTF32 GEMM
+     and the encoder's edge convolution unit launch: 11 forward, 22
+     backward and 11 backward2 calls a step, 20 calls of each GEMM form
+     (the 10 block projections' forward (NT), create-graph gradient (NN),
+     and backward: NN, NT and two TN), and 4 forward and 4 backward edge
+     convolution calls;
   10. data parallel and the JAX package's last modules (phase `parallel`):
      a world-1 NCCL process group and make_mesh(); phase 8's 3 train steps
      under DDP against the same steps without it (TRAIN_BARS; bit-equality
@@ -278,6 +285,18 @@ CBN_SHAPE = (8, 20_000, 512)  # the AE step's decoder activation (cell 4)
 # stages handed the kernel's statistics): max abs error over max |plain|, as
 # in tests/test_torch_cbn_train_cuda.py.
 CBN_BAR = 5e-5
+EDGECONV_SRC = "surfd_tpu_torch/ops/csrc/edgeconv_train.cu"
+EDGECONV_TPU = ("none: the JAX package left the DGCNN encoder to XLA "
+                "(surfd_tpu/models/dgcnn.py); the port composed it")
+# The AE step's four edge convolutions (cell 4): (B, N, k, Din, Dout)
+EDGECONV_SHAPES = ((8, 10_000, 20, 3, 64), (8, 10_000, 20, 64, 64), (8, 10_000, 20, 64, 128),
+                   (8, 10_000, 20, 128, 256))
+# The unit's kernels against its plain versions on the card, as in
+# tests/test_torch_edgeconv_train_cuda.py (max abs error over max |plain|; the
+# backward handed the kernels' statistics and selection; `sel_differ` the
+# share of (point, channel) whose selected slot differs, a near-tie of e).
+EDGECONV_BARS = {"f": 1e-5, "stats": 1e-5, "buffers": 1e-6, "sel_differ": 1e-4, "dx": 1e-4,
+                 "dw": 1e-4, "dgamma": 1e-5, "dbeta": 1e-5}
 LAP_SRC = "surfd_tpu_torch/ops/csrc/mesh_laplacian.cu"
 LAP_TPU = ("none: the JAX package smooths in float64 numpy "
            "(surfd_tpu/geometry/mesh_ops.py:184-200, laplacian_smooth)")
@@ -559,6 +578,7 @@ def phase_kernels(dev, hgmma=None):
     rows += kernels_conv1d(dev)
     rows.append(kernels_cbn(dev))
     rows += kernels_gemm(dev)
+    rows.append(kernels_edgeconv(dev))
     return rows, k2_calls
 
 
@@ -865,6 +885,100 @@ def kernels_gemm(dev) -> list:
     return rows
 
 
+def kernels_edgeconv(dev) -> dict:
+    """The DGCNN encoder's train-mode edge convolution unit at the AE step's
+    four blocks (EDGECONV_SHAPES): the kernels against the plain versions
+    (EDGECONV_BARS), two runs bit-equal; each block's forward and backward
+    (given the output's gradient) timed in turns through the unit, the
+    composed path under autograd and the plain versions, beside its bound:
+    the point-level products (12·B·N·Din·Dout FLOPs) at the FP32 peak
+    against x, f, their gradients read or written once."""
+    from surfd_tpu_torch.models import dgcnn
+    from surfd_tpu_torch.ops import edgeconv_train as ec
+
+    def gap(u, v):
+        return float((u - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+
+    errs, times, flops, nbytes = {}, [], 0.0, 0.0
+    for B, N, k, Din, Dout in EDGECONV_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(7)
+        cloud = torch.randn((B, N, 3), generator=g, device=dev)
+        idx = dgcnn.knn_indices(cloud, k)
+        x = cloud if Din == 3 else torch.nn.functional.leaky_relu(
+            torch.randn((B, N, Din), generator=g, device=dev) + 0.3, 0.2)
+        w = torch.randn((Dout, 2 * Din), generator=g, device=dev) / (2 * Din) ** 0.5
+        gf = torch.randn((B, N, Dout), generator=g, device=dev)
+        bn = torch.nn.BatchNorm1d(Dout).to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(1.0 + 0.5 * torch.randn(Dout, generator=g, device=dev))
+            bn.weight[::7] *= -1.0
+        adj = ec.adjacency(idx)
+        rm, rv = bn.running_mean.clone(), bn.running_var.clone()
+        runs = []
+        for _ in range(2):
+            with torch.no_grad():
+                bn.running_mean.copy_(rm)
+                bn.running_var.copy_(rv)
+            f, (stats, esel, sel, pq) = ec._forward(x, w, adj, bn)
+            runs.append((f, stats, esel, sel, bn.running_mean.clone(), bn.running_var.clone(),
+                         *ec._backward(gf, x, w, adj, f, stats, esel, sel, pq, True)))
+        if not all(torch.equal(u, v) for u, v in zip(*runs)):
+            raise RuntimeError(f"edgeconv_train {Din}->{Dout}: two runs differ")
+        f, stats, esel, sel, run_mean, run_var, *got = runs[0]
+        f_ref, stats_ref, esel_ref, sel_ref, var = ec.forward_ref(x, idx, w, bn.weight, bn.bias,
+                                                                  bn.eps)
+        m = bn.momentum
+        read = {"f": gap(f, f_ref), "stats": max(gap(stats[i], stats_ref[i]) for i in range(3)),
+                "buffers": max(gap(run_mean, rm * (1 - m) + m * stats_ref[0]),
+                               gap(run_var, rv * (1 - m) + m * var)),
+                "sel_differ": 1.0 - float((sel == sel_ref).double().mean())}
+        want = ec.backward_ref(gf, x, idx, w, stats, esel, sel, f)
+        read.update({n: gap(u, v) for n, u, v in zip(("dx", "dw", "dgamma", "dbeta"), got, want)})
+        del f_ref, stats_ref, esel_ref, sel_ref, want, runs
+        over = {n: v for n, v in read.items() if not v <= EDGECONV_BARS[n]}
+        if over:
+            raise RuntimeError(f"edgeconv_train {Din}->{Dout}: {over} over the bars "
+                               f"{EDGECONV_BARS}")
+        errs[f"{Din}->{Dout}"] = read
+        leaves = [x.clone().requires_grad_(Din != 3), w.clone().requires_grad_(True),
+                  bn.weight, bn.bias]
+        wrt = leaves[Din == 3:]
+
+        def unit(leaves=leaves, wrt=wrt, adj=adj, bn=bn, gf=gf):
+            return torch.autograd.grad(ec.edgeconv_train(leaves[0], adj, leaves[1], bn), wrt, gf)
+
+        def composed(leaves=leaves, wrt=wrt, idx=idx, bn=bn, gf=gf):
+            e = torch.nn.functional.linear(dgcnn.gather_graph_feature(leaves[0], idx), leaves[1])
+            out = torch.nn.functional.leaky_relu(dgcnn.batch_norm(e, bn, True), 0.2,
+                                                 inplace=True).amax(dim=2)
+            return torch.autograd.grad(out, wrt, gf)
+
+        def plain(x=x, idx=idx, w=w, bn=bn, gf=gf):
+            f, st, es, sl, _ = ec.forward_ref(x, idx, w, bn.weight, bn.bias, bn.eps)
+            ec.backward_ref(gf, x, idx, w, st, es, sl, f)
+
+        times.append(time_ms_turns([unit, composed, plain], reps=3))
+        flops += 12.0 * B * N * Din * Dout
+        nbytes += 4.0 * B * N * 2 * (Din + Dout)
+        del leaves, wrt, unit, composed, plain
+    ms, lib_ms, plain_ms = (sum(t[i] for t in times) for i in range(3))
+    b_ms, b_by = bound(nbytes, flops, "f32")
+    blocks = {f"{s[3]}->{s[4]}": {"unit_ms": t[0], "composed_ms": t[1], "plain_ms": t[2]}
+              for s, t in zip(EDGECONV_SHAPES, times)}
+    row = {"name": "edgeconv_train", "keys": ["edgeconv_train_forward", "edgeconv_train_backward"],
+           "route": "cuda", "source": EDGECONV_SRC, "replaces": EDGECONV_TPU, "launches": 0,
+           "max_abs_err": max(max(v for n, v in r.items() if n != "sel_differ")
+                              for r in errs.values()),
+           "errors": errs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": lib_ms, "blocks": blocks,
+           "shape": "the AE step's four blocks, B 8 x 10,000 points x k 20, forward + backward"}
+    log(f"[kernels] edgeconv_train, the four blocks at B 8 x 10,000 x k 20: errors "
+        f"{json.dumps(errs)} (bars {json.dumps(EDGECONV_BARS)}), two runs equal; forward + "
+        f"backward {ms:.3f} ms, composed under autograd {lib_ms:.3f} ms, plain {plain_ms:.3f} "
+        f"ms, bound {b_ms:.3f} ms ({b_by}); by block {json.dumps(blocks)}")
+    return row
+
+
 def kernels_laplacian(dev, iterations: int = 3) -> dict:
     """The cleanup's Laplacian on the sheet's finalized 256^3 mesh (the
     fixture decoder, the default extraction without the final passes)
@@ -1151,6 +1265,7 @@ def reset_counts():
     from surfd_tpu_torch.ops import cbn_train as cb
     from surfd_tpu_torch.ops import conv1d_kernel as ck
     from surfd_tpu_torch.ops import decoder_kernel as dk
+    from surfd_tpu_torch.ops import edgeconv_train as ec
     from surfd_tpu_torch.ops import gemm_tf32x3 as gm
     from surfd_tpu_torch.ops import mesh_laplacian as ml
 
@@ -1171,6 +1286,8 @@ def reset_counts():
     cb.forward_ref.calls = cb.backward_ref.calls = cb.backward2_ref.calls = 0
     gm.mm_tf32x3.launches.update(nt=0, nn=0, tn=0)
     gm.mm_ref.calls = 0
+    ec.edgeconv_train.launches.update(forward=0, backward=0)
+    ec.forward_ref.calls = ec.backward_ref.calls = 0
 
 
 def launch_counts() -> dict:
@@ -2994,18 +3111,22 @@ AE_FAULTS = {"TF32 on": "grad_global",
 AE_TIMED = 10  # steps timed at the preset's batch
 AE_CBN_UNITS = 2 * AE_LAYERS + 1  # the decoder's conditional BatchNorm + ReLU units
 AE_GEMMS = 2 * AE_LAYERS  # the blocks' 512 x 512 projections, on the 3xTF32 GEMM
+AE_EDGE_BLOCKS = 4  # the DGCNN's edge convolutions, on the edge convolution unit
 
 
 def ae_step_calls(steps: int) -> dict:
     """The hand-written kernels' calls in `steps` AE steps on the card: the
     fused CBN unit's stages (each unit's forward, its backward in the
     create-graph gradient and in loss.backward(), and its second derivative
-    there) and the GEMM's forms (each projection's forward NT, create-graph
+    there), the GEMM's forms (each projection's forward NT, create-graph
     input gradient NN, and in loss.backward() the forward's input (NN) and
-    weight (TN) gradients and the gradient graph's (NT, TN))."""
-    n, p = AE_CBN_UNITS * steps, AE_GEMMS * steps
+    weight (TN) gradients and the gradient graph's (NT, TN)) and the
+    encoder's edge convolution units (a forward, and a backward in
+    loss.backward())."""
+    n, p, e = AE_CBN_UNITS * steps, AE_GEMMS * steps, AE_EDGE_BLOCKS * steps
     return {"cbn_train_forward": n, "cbn_train_backward": 2 * n, "cbn_train_backward2": n,
-            "gemm_tf32x3_nt": 2 * p, "gemm_tf32x3_nn": 2 * p, "gemm_tf32x3_tn": 2 * p}
+            "gemm_tf32x3_nt": 2 * p, "gemm_tf32x3_nn": 2 * p, "gemm_tf32x3_tn": 2 * p,
+            "edgeconv_train_forward": e, "edgeconv_train_backward": e}
 
 
 def launches_since(before: dict) -> dict:
@@ -3157,7 +3278,7 @@ def planted_ae_fault(name: str):
     from unittest import mock
 
     from surfd_tpu_torch.models import decoder, dgcnn, layers
-    from surfd_tpu_torch.ops import cbn_train
+    from surfd_tpu_torch.ops import cbn_train, edgeconv_train
     from surfd_tpu_torch.training import ae_trainer
     from surfd_tpu_torch.utils import use_full_f32
 
@@ -3168,6 +3289,10 @@ def planted_ae_fault(name: str):
     def cbn_momentum_09(x, gamma, beta, bn):
         bn.momentum = 0.9
         return cbn_train.cbn_relu_train(x, gamma, beta, bn)
+
+    def edgeconv_momentum_09(x, adj, weight, bn):
+        bn.momentum = 0.9
+        return edgeconv_train.edgeconv_train(x, adj, weight, bn)
 
     with contextlib.ExitStack() as undo:
         undo.callback(use_full_f32)
@@ -3182,6 +3307,7 @@ def planted_ae_fault(name: str):
         elif name == "momentum 0.9 on the batch's side":
             undo.enter_context(mock.patch.object(decoder, "cbn_relu_train", cbn_momentum_09))
             undo.enter_context(mock.patch.object(dgcnn, "batch_norm", momentum_09))
+            undo.enter_context(mock.patch.object(dgcnn, "edgeconv_train", edgeconv_momentum_09))
         elif name == "BatchNorm buffers kept after a skipped step":
             undo.enter_context(mock.patch.object(ae_trainer, "snapshot_buffers",
                                                  lambda model: []))
@@ -3279,9 +3405,10 @@ def time_ae_steps(dev, init: dict) -> dict:
     queries) from `init`: AE_TIMED steps on the host clock after 2 of
     warm-up, with the peak memory allocated; then 5 more under
     torch.profiler (device busy share, kernels a step, the top kernels). Of
-    the hand-written kernels only the decoder's fused CBN unit and the
-    3xTF32 GEMM run in it (K1 is the folded eval decoder of extraction; the
-    step runs the unfolded one), and no plain version."""
+    the hand-written kernels only the decoder's fused CBN unit, the 3xTF32
+    GEMM and the encoder's edge convolution unit run in it (K1 is the folded
+    eval decoder of extraction; the step runs the unfolded one), and no
+    plain version."""
     from surfd_tpu_torch.training import (
         AutoEncoder,
         create_train_state,
@@ -3345,7 +3472,8 @@ def phase_ae(dev, ref):
     torch.cuda.synchronize()
     out["card_s"] = time.perf_counter() - t0
     # the step runs the unfolded decoder, not K1 (nor its plain version): of
-    # the kernels only the fused CBN unit and the GEMM, each step
+    # the kernels only the fused CBN unit, the GEMM and the edge convolution
+    # unit, each step
     if launches_since(calls) != ae_step_calls(4):
         raise RuntimeError(f"ae: the train steps launched {launches_since(calls)}, want "
                            f"{ae_step_calls(4)}")
@@ -3394,11 +3522,12 @@ def phase_ae(dev, ref):
                              ("train_ae_resume", ["--num_epochs", "10", "--resume"])):
             walls[label], lines, launches = run_cli("train_ae", argv + extra, "ae")
             if not launches.get("cbn_train_backward2") or not all(
-                    launches.get(f"gemm_tf32x3_{f}") for f in ("nt", "nn", "tn")) or any(
+                    launches.get(f"gemm_tf32x3_{f}") for f in ("nt", "nn", "tn")) or not all(
+                    launches.get(f"edgeconv_train_{s}") for s in ("forward", "backward")) or any(
                     n for k, n in launches.items()
-                    if not k.startswith(("cbn_train_", "gemm_tf32x3_"))):
-                raise RuntimeError(f"train_ae launched {launches}: want the CBN unit's and the "
-                                   f"GEMM's alone")
+                    if not k.startswith(("cbn_train_", "gemm_tf32x3_", "edgeconv_train_"))):
+                raise RuntimeError(f"train_ae launched {launches}: want the CBN unit's, the "
+                                   f"GEMM's and the edge convolution unit's alone")
             with open(os.path.join(run, "training_idxes.txt")) as f:
                 sizes.append(len(f.read().split()))
             steps.append(Checkpointer(os.path.join(run, "ckpt")).latest_step())

@@ -13,7 +13,12 @@ Parameters keep the upstream state-dict layout: `conv_1..5.weight` as
 on CUDA go through `utils.device.resolve_device`, which turns TF32 off.
 In train mode (`train_ae`) each BatchNorm takes flax's batch statistics
 (`models.layers.batch_norm`); the kNN indices carry no gradient, the
-gathered edge features do.
+gathered edge features do. On a CUDA float32 input in train mode with grad
+enabled (`fused`) each of the four edge convolutions is one unit with a
+hand-written forward and first derivative (`ops/edgeconv_train.py`), which
+writes no (B, N, k, ·) tensor; the four share one reverse adjacency of the
+neighbours a step. Eval mode, the CPU and grad-off calls keep the composed
+path; kNN and the latent's block stay composed everywhere.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.edgeconv_train import adjacency, edgeconv_train
 from .layers import batch_norm
 
 WIDTHS = (64, 64, 128, 256)
@@ -63,6 +69,12 @@ def gather_graph_feature(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor
     return torch.cat([neighbors - center, center], dim=-1)
 
 
+def fused(training: bool, x: torch.Tensor) -> bool:
+    """Whether the edge convolutions take the hand-written unit."""
+    return (training and x.is_cuda and x.dtype == torch.float32
+            and torch.is_grad_enabled())
+
+
 class Dgcnn(nn.Module):
     """(B, N, 3) point clouds → (B, size_latent) embeddings, with the
     optional `latent_index` (B,) appended as one more channel."""
@@ -87,10 +99,14 @@ class Dgcnn(nn.Module):
 
     def forward(self, x: torch.Tensor, latent_index: torch.Tensor | None = None) -> torch.Tensor:
         indices = knn_indices(x, self.k)
+        adj = adjacency(indices) if fused(self.training, x) else None
         feats, f = [], x
         for i in range(1, len(WIDTHS) + 1):
-            e = getattr(self, f"conv_{i}")(gather_graph_feature(f, indices))
-            f = self._bn_act(getattr(self, f"bn_{i}"), e).amax(dim=2)
+            conv, bn = getattr(self, f"conv_{i}"), getattr(self, f"bn_{i}")
+            if adj is not None:
+                f = edgeconv_train(f, adj, conv.weight, bn)
+            else:
+                f = self._bn_act(bn, conv(gather_graph_feature(f, indices))).amax(dim=2)
             feats.append(f)
         feat = self._bn_act(self.bn_5, self.conv_5(torch.cat(feats, dim=-1))).amax(dim=1)
         if latent_index is not None:

@@ -7,12 +7,13 @@ denoiser's convolutions `conv1d_kernel.conv1d` (csrc/conv1d_stream.cu), the
 cleanup's `mesh_laplacian.laplacian_smooth` (csrc/mesh_laplacian.cu) and the AE
 decoder's train-mode conditional BatchNorm + ReLU `cbn_train.cbn_relu_train`
 (csrc/cbn_train.cu) and its train-mode projections `gemm_tf32x3.mm_tf32x3`
-(csrc/gemm_tf32x3.cu, 3xTF32). The library is built by `_build` at first use
-on a CUDA tensor, never at import. `cuda_graph.GraphedCall` replays the denoiser's call
-from a CUDA graph.
+(csrc/gemm_tf32x3.cu, 3xTF32), and the DGCNN encoder's train-mode edge
+convolutions `edgeconv_train.edgeconv_train` (csrc/edgeconv_train.cu). The
+library is built by `_build` at first use on a CUDA tensor, never at import.
+`cuda_graph.GraphedCall` replays the denoiser's call from a CUDA graph.
 """
 
-from . import cbn_train, gemm_tf32x3
+from . import cbn_train, edgeconv_train, gemm_tf32x3
 from .attention_kernel import (
     qkv_attention,
     qkv_attention_bwd,
@@ -47,7 +48,9 @@ def kernel_calls() -> dict:
     (T, c), the convolutions by (K, stride), the Laplacian and the CBN unit's
     stages (`cbn_train_<stage>`, three kernels a call; only once launched),
     the 3xTF32 GEMM's calls by form (`gemm_tf32x3_nt`, `_nn`, `_tn`; a split
-    call launches its reduction too; only once launched),
+    call launches its reduction too; only once launched), the edge
+    convolution unit's stages (`edgeconv_train_forward`, `_backward`, three
+    kernels a call; only once launched),
     under the row names of chip_smoke.py's kernels line (those replayed from
     a CUDA graph included), the CUDA graphs
     captured and replayed (`cuda_graph_capture`, `cuda_graph_replay`), and
@@ -61,11 +64,14 @@ def kernel_calls() -> dict:
         launches["mesh_laplacian"] = laplacian_smooth.launches
     launches.update({f"cbn_train_{s}": n for s, n in cbn_relu_train.launches.items() if n})
     launches.update({f"gemm_tf32x3_{f}": n for f, n in mm_tf32x3.launches.items() if n})
+    launches.update({f"edgeconv_train_{s}": n
+                     for s, n in edgeconv_train.edgeconv_train.launches.items() if n})
     if GraphedCall.captures:
         launches["cuda_graph_capture"] = GraphedCall.captures
         launches["cuda_graph_replay"] = GraphedCall.replays
     plain = (folded_udf_ref.calls + folded_udf_mixed_ref.calls + qkv_attention_ref.calls
              + qkv_attention_bwd_ref.calls + conv1d_ref.calls + laplacian_smooth_ref.calls
              + cbn_train.forward_ref.calls + cbn_train.backward_ref.calls
-             + cbn_train.backward2_ref.calls + gemm_tf32x3.mm_ref.calls)
+             + cbn_train.backward2_ref.calls + gemm_tf32x3.mm_ref.calls
+             + edgeconv_train.forward_ref.calls + edgeconv_train.backward_ref.calls)
     return {"launches": launches, "plain_calls": plain}

@@ -131,6 +131,14 @@ def load() -> ctypes.CDLL:
             # splits, vec, stream
             lib.surfd_gemm_tf32x3.argtypes = ([vp, i64, i32, vp, i64, i32, vp, vp, vp]
                                               + [i32] * 6 + [vp])
+            lib.surfd_edgeconv_forward.restype = i32
+            # pq, idx, gamma, beta, running mean and var, stats, f, esel, emin, sel, smin,
+            # partial, B, N, k, D, slab, eps, momentum, stream
+            lib.surfd_edgeconv_forward.argtypes = [vp] * 13 + [i32] * 5 + [f32, f32, vp]
+            lib.surfd_edgeconv_backward.restype = i32
+            # gf, f, esel, sel, stats, pq, idx, offsets, rev, u, h, grads, coef, partial,
+            # B, N, k, D, slab, stream
+            lib.surfd_edgeconv_backward.argtypes = [vp] * 14 + [i32] * 5 + [vp]
             _lib = lib
         return _lib
 

@@ -13,12 +13,19 @@ backward through both graphs → AdamW at the annealed lr, unless the loss or
 the gradient norm is not finite; a skipped step also puts the BatchNorm
 running statistics back.
 
-On CUDA the decoder's train-mode conditional BatchNorm + ReLU units run as
-one hand-written unit each (`ops/cbn_train.py`: forward, backward and the
-backward's backward as kernels); nothing else hand-written runs in the step
-or the eval (K1 is the folded eval-mode decoder of extraction). The matmuls
-are cuBLAS's (f32, TF32 off), as the JAX step runs its unfolded decoder and
-DGCNN through XLA.
+On CUDA in f32 three hand-written units run in the step: the decoder's
+train-mode conditional BatchNorm + ReLU (`ops/cbn_train.py`: forward,
+backward and the backward's backward as kernels), its ten 512 × 512 block
+projections on the 3xTF32 tensor-core GEMM (`ops/gemm_tf32x3.py`, to any
+order of derivative), and the encoder's four edge convolutions
+(`ops/edgeconv_train.py`: gather, Linear, BatchNorm, LeakyReLU and the max
+over the neighbours, forward and first derivative; the latent reaches the
+decoder only through the CBN γ/β projections, so `loss.backward()` is the
+one pass that differentiates the encoder). Everything else is composed: kNN,
+the latent's block, the decoder's other projections (cuBLAS in f32, TF32
+off), as the JAX step runs its unfolded decoder and DGCNN through XLA. The
+eval step and the CPU take the composed path throughout (K1 is the folded
+eval-mode decoder of extraction).
 """
 
 from __future__ import annotations

@@ -466,12 +466,14 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
     skipped, and the params, AdamW's moments and every BatchNorm running
     buffer, which the train-mode forward moved on the card, are as before;
     a good batch then moves them. Of the hand-written kernels only the
-    decoder's fused CBN + ReLU unit and the 3xTF32 GEMM launch, the skipped
-    step too: each of the 5 units a step once forward, twice backward (the
-    create-graph gradient and loss.backward) and once backward2; each of
-    the 4 block projections (128 wide, so that they take the GEMM) a step
-    twice in each form (forward NT, create-graph gradient NN; in
-    loss.backward NN, TN and the gradient graph's NT, TN)."""
+    decoder's fused CBN + ReLU unit, the 3xTF32 GEMM and the encoder's edge
+    convolution unit launch, the skipped step too: each of the 5 units a
+    step once forward, twice backward (the create-graph gradient and
+    loss.backward) and once backward2; each of the 4 block projections (128
+    wide, so that they take the GEMM) a step twice in each form (forward NT,
+    create-graph gradient NN; in loss.backward NN, TN and the gradient
+    graph's NT, TN); each of the 4 edge convolutions a step once forward and
+    once backward (loss.backward)."""
     from surfd_tpu_torch.ops import kernel_calls
     from surfd_tpu_torch.training import (
         AETrainConfig,
@@ -495,7 +497,7 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
 
     def split():
         calls = kernel_calls()["launches"]
-        ours = ("cbn_train_", "gemm_tf32x3_")
+        ours = ("cbn_train_", "gemm_tf32x3_", "edgeconv_train_")
         return ({k: n for k, n in calls.items() if k.startswith(ours)},
                 sum(n for k, n in calls.items() if not k.startswith(ours)))
 
@@ -521,7 +523,9 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
                         "cbn_train_backward": cbn.get("cbn_train_backward", 0) + 6 * units,
                         "cbn_train_backward2": cbn.get("cbn_train_backward2", 0) + 3 * units,
                         **{f"gemm_tf32x3_{f}": cbn.get(f"gemm_tf32x3_{f}", 0) + 6 * projections
-                           for f in ("nt", "nn", "tn")}},
+                           for f in ("nt", "nn", "tn")},
+                        **{f"edgeconv_train_{s}": cbn.get(f"edgeconv_train_{s}", 0) + 3 * 4
+                           for s in ("forward", "backward")}},
                        launches)
 
 
