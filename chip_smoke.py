@@ -135,7 +135,10 @@ Phases, each fatal on failure:
      convolution unit's entries, the buffers
      kept after the skip) must each fail their bar; the step timed at B 8 x
      20,000 queries (ms a step, peak memory, device busy share, kernels a
-     step, the top kernels); then the
+     step, the top kernels, cudaStreamSynchronize calls a step (0: the step
+     holds no host sync), a batch's upload on the host), on batches made
+     beforehand and again fed by benchmark cell 4's corpus through the
+     feed's thread; then the
      CLI chain in subprocesses: preprocess_udfs on 14 meshes written with
      numpy (the sheet fixture's 128^3 extraction among them) at its
      defaults (both splits at once), train_ae --config deepfashion3d --curriculum for 6 epochs,
@@ -3109,6 +3112,7 @@ AE_FAULTS = {"TF32 on": "grad_global",
              "momentum 0.9 on the batch's side": "buffers",
              "BatchNorm buffers kept after a skipped step": "buffers"}
 AE_TIMED = 10  # steps timed at the preset's batch
+AE_SYNC_STEPS = 3  # steps whose cudaStreamSynchronize calls are counted
 AE_CBN_UNITS = 2 * AE_LAYERS + 1  # the decoder's conditional BatchNorm + ReLU units
 AE_GEMMS = 2 * AE_LAYERS  # the blocks' 512 x 512 projections, on the 3xTF32 GEMM
 AE_EDGE_BLOCKS = 4  # the DGCNN's edge convolutions, on the edge convolution unit
@@ -3403,18 +3407,22 @@ def write_ae_meshes(root: str, dev) -> None:
 def time_ae_steps(dev, init: dict) -> dict:
     """The AE step at the preset's batch (AE_B x 10,000 cloud points x AE_Q
     queries) from `init`: AE_TIMED steps on the host clock after 2 of
-    warm-up, with the peak memory allocated; then 5 more under
-    torch.profiler (device busy share, kernels a step, the top kernels). Of
-    the hand-written kernels only the decoder's fused CBN unit, the 3xTF32
-    GEMM and the encoder's edge convolution unit run in it (K1 is the folded
-    eval decoder of extraction; the step runs the unfolded one), and no
-    plain version."""
+    warm-up, on batches made beforehand (no feed thread), with the peak
+    memory allocated; then 5 more under torch.profiler (device busy share,
+    kernels a step, the top kernels); the host's cudaStreamSynchronize
+    calls a step over AE_SYNC_STEPS more (0: the host never waits for the
+    card inside a step); the host time of one batch's upload; then 2 + AE_TIMED
+    steps fed as the CLI feeds them (`fed_ae_steps`). Of the hand-written
+    kernels only the decoder's fused CBN unit, the 3xTF32 GEMM and the
+    encoder's edge convolution unit run in it (K1 is the folded eval decoder
+    of extraction; the step runs the unfolded one), and no plain version."""
     from surfd_tpu_torch.training import (
         AutoEncoder,
         create_train_state,
         make_ae_train_step,
         make_optimizer,
     )
+    from surfd_tpu_torch.training.common import on_device
 
     ae = AutoEncoder(AE_LATENT, AE_HIDDEN, AE_LAYERS, k=RECON_K)
     ae.load_state_dict(init, strict=True)
@@ -3439,12 +3447,77 @@ def time_ae_steps(dev, init: dict) -> dict:
     wall_us, busy_us = _profiled(f"ae step, B {AE_B} x {AE_Q} queries, 5 steps",
                                  lambda: run(5), steps=5)
     busy = None if busy_us is None else busy_us / wall_us
+    syncs = stream_syncs(lambda: run(AE_SYNC_STEPS)) / AE_SYNC_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        for key in ("pcd", "coords", "udf", "gradients"):
+            on_device(batches[0][key], dev, torch.float32)
+    upload_us = (time.perf_counter() - t0) / 10 * 1e6
+    fed = fed_ae_steps(dev, step, state)
     log(f"[ae] step at B {AE_B} x {RECON_POINTS} cloud points x {AE_Q} queries: {ms:.2f} ms a "
         f"step over {AE_TIMED} steps, peak memory allocated {peak / 2**30:.3f} GiB, device busy "
         + ("not measured" if busy is None else f"{100 * busy:.1f} %")
-        + f"; last loss {float(m['loss']):.5f}")
+        + f"; last loss {float(m['loss']):.5f}; cudaStreamSynchronize {syncs:.2f} a step; "
+        f"a batch's upload {upload_us:.0f} us of host; fed by the feed's thread "
+        f"{fed['ms_per_step']:.2f} ms a step (the feed alone {fed['feed_ms_per_batch']:.1f} ms "
+        f"a batch)")
     return {"ms_per_step": ms, "peak_bytes": peak, "busy_share": busy,
-            "device_ms_per_step": None if busy_us is None else busy_us / 5e3}
+            "device_ms_per_step": None if busy_us is None else busy_us / 5e3,
+            "stream_syncs_per_step": syncs, "upload_host_us": upload_us, "fed": fed}
+
+
+def stream_syncs(fn) -> int:
+    """cudaStreamSynchronize calls that fn makes, from torch.profiler's
+    runtime rows: each is the host waiting for the card (a pageable copy's
+    end, a device value read on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()  # cudaDeviceSynchronize: not counted
+    return sum(e.count for e in prof.key_averages() if e.key == "cudaStreamSynchronize")
+
+
+def fed_ae_steps(dev, step, state) -> dict:
+    """The AE step fed as the benchmark's cell 4 and `train_ae` feed it: the
+    cell's corpus (`benchmark/kinds/train_ae.py write_corpus`, 16 items of
+    20,000 cloud points and 50,000 queries) read by UdfDataset, drawn by
+    ae_batch_iterator over SequenceSamplerTrain on the feed's thread
+    (prefetch_iterator, depth 2); AE_TIMED steps on the host clock after 2
+    of warm-up, and the feed's own milliseconds a batch."""
+    from benchmark.kinds.train_ae import write_corpus
+    from surfd_tpu_torch.data import UdfDataset, ae_batch_iterator
+    from surfd_tpu_torch.data.curriculum import CurriculumState, SequenceSamplerTrain
+    from surfd_tpu_torch.data.prefetch import prefetch_iterator
+
+    with open(os.path.join(ROOT, "benchmark", "workloads", "train-ae-b8.json")) as f:
+        traffic = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(tmp, 43, traffic, 0.1)
+        ds = UdfDataset(tmp, "train")
+
+        def batches(seed):
+            rng = np.random.default_rng(seed)
+            sampler = SequenceSamplerTrain(CurriculumState(len(ds), list(range(len(ds)))), rng)
+            return ae_batch_iterator(ds, lambda: list(sampler), AE_B, RECON_POINTS, AE_Q, rng)
+
+        alone = batches(44)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            next(alone)
+        feed_ms = (time.perf_counter() - t0) / 5 * 1e3
+        feed = prefetch_iterator(batches(45), depth=2)
+        for _ in range(2):
+            step(state, next(feed))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AE_TIMED):
+            step(state, next(feed))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / AE_TIMED * 1e3
+    return {"ms_per_step": ms, "feed_ms_per_batch": feed_ms}
 
 
 def phase_ae(dev, ref):
@@ -3452,7 +3525,8 @@ def phase_ae(dev, ref):
     NaN cloud) on the card against the port's CPU run (`ref`:
     ae_reference()) from the same JAX-scheme init and batches at B 2 x 4,096
     queries; each of AE_FAULTS must fail its bar; (b) the step timed and
-    profiled at B 8 x 20,000 queries; (c) the CLI chain in subprocesses:
+    profiled at B 8 x 20,000 queries, with no host sync in it, and again fed
+    by cell 4's corpus; (c) the CLI chain in subprocesses:
     preprocess_udfs on 14 numpy-written meshes at its defaults, train_ae
     --config deepfashion3d --curriculum for 6 epochs, then --resume to 10,
     then export_meshes reading the run (its K1 launches count here)."""
@@ -3499,8 +3573,12 @@ def phase_ae(dev, ref):
     t0 = time.perf_counter()
     calls = kernel_calls()
     out["timed"] = time_ae_steps(dev, ref["init"])
-    if launches_since(calls) != ae_step_calls(2 + AE_TIMED + 2 * 5):  # _profiled runs twice
+    # _profiled runs twice; the sync count, the feed's warm-up and timed steps
+    if launches_since(calls) != ae_step_calls(2 + AE_TIMED + 2 * 5 + AE_SYNC_STEPS + 2 + AE_TIMED):
         raise RuntimeError(f"ae: the timed steps launched {launches_since(calls)}")
+    if out["timed"]["stream_syncs_per_step"]:
+        raise RuntimeError(f"ae: the step waits for the card: "
+                           f"{out['timed']['stream_syncs_per_step']} cudaStreamSynchronize a step")
     torch.cuda.empty_cache()  # the step's ~44 GiB go back to the card for the CLIs
     log(f"[ae] (b): {time.perf_counter() - t0:.1f}s")
 

@@ -11,6 +11,7 @@ from .common import (
     GracefulShutdown,
     StallWatchdog,
     TrainState,
+    annealed_lr,
     apply_update_if_finite,
     create_train_state,
     ema_update,
@@ -25,7 +26,7 @@ __all__ = [
     "AETrainConfig", "AutoEncoder", "curriculum_validate", "init_ae", "make_ae_apply_fns",
     "make_ae_eval_step",
     "make_ae_train_step",
-    "GracefulShutdown", "StallWatchdog", "TrainState", "apply_update_if_finite",
+    "GracefulShutdown", "StallWatchdog", "TrainState", "annealed_lr", "apply_update_if_finite",
     "create_train_state", "ema_update", "global_norm", "make_optimizer", "snapshot_buffers",
     "staircase_lr",
     "DiffusionTrainConfig", "DiffusionTrainer", "make_train_step",

@@ -11,7 +11,9 @@ the same forward pass → BCE on 1 − udf/max_dist + grad_loss_weight × the
 masked MSE of that gradient (+ latent_reg_weight · mean(latent²)) →
 backward through both graphs → AdamW at the annealed lr, unless the loss or
 the gradient norm is not finite; a skipped step also puts the BatchNorm
-running statistics back.
+running statistics back. On CUDA the step holds no host sync: the batch goes
+up from pinned memory without blocking and the skip is decided on the card,
+so the host enqueues the next step while the card runs this one.
 
 On CUDA in f32 three hand-written units run in the step: the decoder's
 train-mode conditional BatchNorm + ReLU (`ops/cbn_train.py`: forward,
@@ -41,7 +43,13 @@ from torch import nn
 from ..models.decoder import CbnDecoder, Conv1x1, coords_encode
 from ..models.dgcnn import Dgcnn
 from ..utils.profiling import span
-from .common import TrainState, apply_update_if_finite, on_device, snapshot_buffers
+from .common import (
+    TrainState,
+    apply_update_if_finite,
+    on_device,
+    skipped_flag,
+    snapshot_buffers,
+)
 
 
 @dataclass
@@ -139,9 +147,9 @@ def make_ae_train_step(ae: AutoEncoder, max_dist: float = 0.1, grad_loss_weight:
     distances, 'gradients' (B, Q, 3); numpy or tensors. The grad loss is
     the MSE of the coordinate gradient over the queries whose target
     1 − udf/max_dist lies strictly inside (0, 1), divided by
-    max(3 · their count, 1). Metrics (device tensors but
-    `nonfinite_skipped`): loss, udf_loss, grad_loss, grad_norm,
-    nonfinite_skipped. `train_step.loss_fn(batch)` is the step's loss alone,
+    max(3 · their count, 1). Metrics, 0-d device tensors that the step
+    never reads: loss, udf_loss, grad_loss, grad_norm, nonfinite_skipped
+    (1.0 on a skipped step). `train_step.loss_fn(batch)` is the step's loss alone,
     (loss, terms), for tests. Spans: `train.step`, and below it
     `train.forward` (the batch's upload, the forward with the coordinate
     gradient, the loss), `train.backward` and `train.update`.
@@ -181,7 +189,7 @@ def make_ae_train_step(ae: AutoEncoder, max_dist: float = 0.1, grad_loss_weight:
             "udf_loss": terms["udf_loss"].detach(),
             "grad_loss": terms["grad_loss"].detach(),
             "grad_norm": gnorm,
-            "nonfinite_skipped": 0.0 if ok else 1.0,
+            "nonfinite_skipped": skipped_flag(ok),
         }
 
     train_step.loss_fn = loss_fn

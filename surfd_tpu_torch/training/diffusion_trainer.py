@@ -47,6 +47,7 @@ from .common import (
     apply_update_if_finite,
     global_norm,
     on_device,
+    skipped_flag,
 )
 
 
@@ -103,8 +104,9 @@ def make_train_step(
     batch: 'latents' (B, L), or 'pcd' (B, N, 3) through the frozen `encoder`;
     optional 'context' (B, 512) or 'action' (B,). t: (B,) steps from the
     schedule sampler; weights: (B,) importance weights. Arrays may be numpy.
-    Metrics (device tensors but `nonfinite_skipped`): loss, latent_l1,
-    per_example_loss (B,), grad_norm, param_norm, nonfinite_skipped.
+    Metrics, device tensors that the step never reads: loss, latent_l1,
+    per_example_loss (B,), grad_norm, param_norm, nonfinite_skipped (1.0 on
+    a skipped step).
     `train_step.loss_fn(batch, t, weights, ...)` is the step's loss alone,
     (loss, terms), for tests.
     """
@@ -176,7 +178,7 @@ def make_train_step(
             "per_example_loss": per_ex,
             "grad_norm": gnorm,
             "param_norm": global_norm(state.model.parameters()),
-            "nonfinite_skipped": 0.0 if ok else 1.0,
+            "nonfinite_skipped": skipped_flag(ok),
         }
 
     train_step.loss_fn = loss_fn
@@ -294,7 +296,8 @@ class DiffusionTrainer:
 
     def _loop(self, draws: Iterator, num_steps: int) -> TrainState:
         """Steps on `draws`' (batch, t, weights) until `num_steps`. A logged
-        `nonfinite_skipped` counts the steps skipped since the last log."""
+        `nonfinite_skipped` counts the steps skipped since the last log: a
+        device sum, read with the logged scalars."""
         skipped = 0.0
         with GracefulShutdown() as stop, StallWatchdog(self.cfg.stall_exit_s) as wd:
             while self.state.step < num_steps:
@@ -315,7 +318,7 @@ class DiffusionTrainer:
                         self.schedule_sampler.update_with_all_losses(t, per_ex)
                 step = self.state.step
                 if self.logger and step % self.cfg.log_interval == 0:
-                    self.logger.log_metrics({**_scalars(metrics), "nonfinite_skipped": skipped},
+                    self.logger.log_metrics(_scalars({**metrics, "nonfinite_skipped": skipped}),
                                             step=step)
                     skipped = 0.0
                 if self.checkpointer and step % self.cfg.save_interval == 0:

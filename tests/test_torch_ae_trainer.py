@@ -372,6 +372,83 @@ def test_nonfinite_batch_restores_params_moments_and_buffers(pair):
     assert not torch.equal(after["decoder.bn.bn.running_var"], before["decoder.bn.bn.running_var"])
 
 
+def test_nonfinite_step_changes_nothing_but_the_step_counter(pair):
+    """The skip as the card takes it, decided on the device: with an EMA
+    kept, a NaN cloud leaves the params, AdamW's two moments and per-param
+    step, the count (a 0-d device tensor), the lr, the EMA and every
+    BatchNorm buffer bit-equal to before; the step counter advances, the
+    gradients are cleared, and `ok` and `nonfinite_skipped` are 0-d tensors
+    that the step did not read. The next good batch moves all of them."""
+    _, _, params, stats = pair
+    ae = _port_ae(params, stats)
+    state = create_train_state(ae, make_optimizer(ae.parameters(), LR), ema_rate=0.9)
+    step = make_ae_train_step(ae, MAX_DIST)
+    good, bad = _batches(2, seed=6)
+    step(state, good)
+    bad["pcd"][0, 3] = np.nan
+
+    def snapshot():
+        opt = state.optimizer
+        return {"model": {k: v.clone() for k, v in ae.state_dict().items()},
+                "opt": {i: {k: v.clone() for k, v in s.items()}
+                        for i, s in opt.state_dict()["state"].items()},
+                "ema": [e.clone() for e in state.ema], "count": state.count.clone(),
+                "lr": opt.param_groups[0]["lr"].clone()}
+
+    def same(a, b):
+        return {"model": all(torch.equal(v, b["model"][k]) for k, v in a["model"].items()),
+                "opt": all(torch.equal(v, b["opt"][i][k])
+                           for i, s in a["opt"].items() for k, v in s.items()),
+                "ema": all(torch.equal(x, y) for x, y in zip(a["ema"], b["ema"])),
+                "count": torch.equal(a["count"], b["count"]), "lr": torch.equal(a["lr"], b["lr"])}
+
+    before = snapshot()
+    m = step(state, bad)
+    assert isinstance(m["nonfinite_skipped"], torch.Tensor) and m["nonfinite_skipped"].dim() == 0
+    assert m["nonfinite_skipped"] == 1.0 and state.step == 2 and state.count == 1
+    assert state.count.dtype == torch.int64 and state.count.dim() == 0
+    assert all(p.grad is None for p in ae.parameters())
+    assert all(same(snapshot(), before).values()), same(snapshot(), before)
+    m = step(state, good)
+    assert m["nonfinite_skipped"] == 0.0 and (state.step, state.count) == (3, 2)
+    moved = same(snapshot(), before)
+    assert not any(moved[k] for k in ("model", "opt", "ema", "count")), moved
+
+
+def test_skip_returns_a_device_bool(pair):
+    """`apply_update_if_finite` hands back `ok` as a 0-d bool tensor on the
+    loss's device, False for a non-finite loss and True for a finite one."""
+    from surfd_tpu_torch.training import apply_update_if_finite
+
+    _, _, params, stats = pair
+    ae = _port_ae(params, stats)
+    state = create_train_state(ae, make_optimizer(ae.parameters(), LR))
+    for value, want in ((float("nan"), False), (float("inf"), False), (1.0, True)):
+        loss = sum(p.sum() for p in ae.parameters()) * 0.0 + value
+        loss.backward()
+        ok, gnorm = apply_update_if_finite(state, loss.detach())
+        assert ok.dtype == torch.bool and ok.dim() == 0 and bool(ok) is want, value
+        assert gnorm.dim() == 0
+
+
+def test_on_device_copies_host_arrays_on_the_cpu():
+    """Without CUDA nothing is pinned: `on_device` gives the array's values
+    as a copy (a later write to the array does not show), in the dtype
+    asked, from read-only and non-contiguous arrays too; a tensor already
+    on the device is handed through."""
+    from surfd_tpu_torch.training.common import on_device
+
+    cpu = torch.device("cpu")
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    got = on_device(a, cpu)
+    a[0, 0] = 99.0
+    assert got[0, 0] == 0.0 and got.dtype == torch.float32
+    a.flags.writeable = False
+    assert torch.equal(on_device(a.T, cpu, torch.float64), torch.from_numpy(a.T.astype(np.float64)))
+    t = torch.ones(2)
+    assert on_device(t, cpu) is t
+
+
 def _sphere(radius: float, r: int = 24):
     xs = np.linspace(-1, 1, r)
     g = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), axis=-1)

@@ -529,6 +529,168 @@ def test_ae_skip_restores_batchnorm_buffers_on_card(cuda):
                        launches)
 
 
+def _train_state_snapshot(state) -> dict:
+    """Everything a skipped step must leave as it was: the model's state
+    dict (params and BatchNorm buffers), AdamW's moments and per-param
+    steps, the count of applied updates, each group's lr and the EMA."""
+    opt = state.optimizer
+    return {"model": {k: v.clone() for k, v in state.model.state_dict().items()},
+            "opt": {(i, k): v.clone() for i, s in opt.state_dict()["state"].items()
+                    for k, v in s.items()},
+            "count": state.count.clone(),
+            "lr": [g["lr"].clone() for g in opt.param_groups],
+            "ema": [e.clone() for e in state.ema or ()]}
+
+
+def _unchanged(a: dict, b: dict) -> dict:
+    """Per part of two snapshots, whether it is bit-equal."""
+    return {"model": all(torch.equal(v, b["model"][k]) for k, v in a["model"].items()),
+            "opt": all(torch.equal(v, b["opt"][k]) for k, v in a["opt"].items()),
+            "count": torch.equal(a["count"], b["count"]),
+            "lr": all(torch.equal(x, y) for x, y in zip(a["lr"], b["lr"])),
+            "ema": all(torch.equal(x, y) for x, y in zip(a["ema"], b["ema"]))}
+
+
+def _steps_without_sync(step, state, good, bad) -> None:
+    """After a warm-up step on `good()`: a good step, a step on `bad()` and
+    a good step, each under sync debug mode "error" (a host sync raises). The
+    skipped step leaves the snapshot bit-equal, the next good one moves it."""
+    step(good())
+    torch.cuda.synchronize()
+
+    def checked(batch):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    assert checked(good())["nonfinite_skipped"] == 0.0
+    before = _train_state_snapshot(state)
+    assert checked(bad())["nonfinite_skipped"] == 1.0
+    assert all(_unchanged(_train_state_snapshot(state), before).values()), \
+        _unchanged(_train_state_snapshot(state), before)
+    assert checked(good())["nonfinite_skipped"] == 0.0
+    moved = _unchanged(_train_state_snapshot(state), before)
+    assert not any(moved[k] for k in ("model", "opt", "count")), moved
+    assert (state.step, int(state.count)) == (4, 3)
+
+
+@pytest.mark.cuda
+def test_ae_train_step_makes_no_host_sync(cuda):
+    """The AE step on the card (the small AutoEncoder of
+    test_ae_skip_restores_batchnorm_buffers_on_card) takes no host sync: the
+    batch goes up from pinned memory without blocking and the non-finite
+    skip is decided on the card. A NaN cloud changes nothing but the step
+    counter (params, both AdamW moments and per-param steps, the count, the
+    lr, every BatchNorm buffer)."""
+    from surfd_tpu_torch.training import (
+        AETrainConfig,
+        create_train_state,
+        init_ae,
+        make_ae_train_step,
+        make_optimizer,
+    )
+
+    ae = init_ae(AETrainConfig(latent_size=8, hidden_dim=128, num_hidden_layers=2),
+                 torch.Generator().manual_seed(0)).to(cuda)
+    state = create_train_state(ae, make_optimizer(ae.parameters(), 1e-4))
+    train_step = make_ae_train_step(ae)
+    rng = np.random.default_rng(1)
+
+    def good():
+        return {"pcd": rng.uniform(-0.5, 0.5, (2, 256, 3)).astype(np.float32),
+                "coords": rng.uniform(-1, 1, (2, 512, 3)).astype(np.float32),
+                "udf": rng.uniform(0, 0.1, (2, 512)).astype(np.float32),
+                "gradients": rng.normal(size=(2, 512, 3)).astype(np.float32)}
+
+    def bad():
+        b = good()
+        b["pcd"][1, 9] = np.nan
+        return b
+
+    _steps_without_sync(lambda b: train_step(state, b), state, good, bad)
+
+
+@pytest.mark.cuda
+def test_diffusion_train_step_makes_no_host_sync(cuda):
+    """The category MDM's train step on the card (full width, B 2, the EMA
+    at 0.9) takes no host sync, and a NaN latent changes nothing but the
+    step counter (params, AdamW's state, the count, the lr, the EMA)."""
+    from surfd_tpu_torch.diffusion import named_schedule
+    from surfd_tpu_torch.training import create_train_state, make_optimizer, make_train_step
+
+    mdm = MDM(cond_mode="category", num_actions=9)
+    mdm.Unet.random_init_(torch.Generator().manual_seed(0))
+    mdm = mdm.to(cuda)
+    state = create_train_state(mdm, make_optimizer(mdm.parameters(), 1e-4), ema_rate=0.9)
+    train_step = make_train_step(mdm, named_schedule("cosine", 1000))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rng = np.random.default_rng(2)
+
+    def good():
+        return {"latents": rng.normal(size=(2, 32)).astype(np.float32),
+                "action": rng.integers(0, 9, 2).astype(np.int64)}
+
+    def bad():
+        b = good()
+        b["latents"][0, 4] = np.nan
+        return b
+
+    def step(batch):
+        t = rng.integers(0, 1000, 2)
+        return train_step(state, batch, t, np.ones(2, np.float32), generator=gen)
+
+    _steps_without_sync(step, state, good, bad)
+
+
+@pytest.mark.cuda
+def test_pinned_upload_yields_the_feeds_arrays(cuda, tmp_path):
+    """A seeded AE feed (ae_batch_iterator through prefetch_iterator, as the
+    CLI and the benchmark serve it) uploaded by `on_device` from pinned
+    memory without blocking, while a long matmul chain holds the stream so
+    that the copies queue behind it: every batch reads on the card as the
+    same feed's arrays read on the host, in the same order (no pinned
+    buffer is reused before its copy is done). A read-only and a
+    non-contiguous array go up too."""
+    from surfd_tpu_torch.data import UdfDataset, ae_batch_iterator
+    from surfd_tpu_torch.data.prefetch import prefetch_iterator
+    from surfd_tpu_torch.training.common import on_device
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "train").mkdir()
+    for i in range(6):
+        np.savez(tmp_path / "train" / f"item_{i}.npz",
+                 pcd=rng.normal(size=(900, 3)).astype(np.float32),
+                 coords=rng.normal(size=(1500, 3)).astype(np.float32),
+                 labels=rng.uniform(0, 0.1, 1500).astype(np.float32),
+                 gradients=rng.normal(size=(1500, 3)).astype(np.float32))
+    ds = UdfDataset(str(tmp_path))
+
+    def feed():
+        draws = np.random.default_rng(7)
+        return prefetch_iterator(ae_batch_iterator(ds, lambda: range(len(ds)), 2, 512, 1024,
+                                                   draws), depth=2)
+
+    keys = ("pcd", "coords", "udf", "gradients")
+    want = [b for b, _ in zip(feed(), range(12))]
+    a = torch.randn(4096, 4096, device=cuda)
+    held = a
+    for _ in range(20):
+        held = held @ a * 1e-2
+    got = [{k: on_device(b[k], cuda, torch.float32) for k in keys}
+           for b, _ in zip(feed(), range(12))]
+    torch.cuda.synchronize()
+    for n, (g, w) in enumerate(zip(got, want)):
+        for k in keys:
+            assert torch.equal(g[k].cpu(), torch.from_numpy(w[k])), (n, k)
+    ro = np.arange(12, dtype=np.float32).reshape(3, 4)
+    ro.flags.writeable = False
+    assert torch.equal(on_device(ro, cuda).cpu(), torch.from_numpy(ro.copy()))
+    assert torch.equal(on_device(ro.T, cuda, torch.float64).cpu(),
+                       torch.from_numpy(ro.T.astype(np.float64)))
+
+
 def _fixture_evaluator(cuda):
     from surfd_tpu_torch.pipelines import make_udf_fn
 

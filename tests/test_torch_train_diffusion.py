@@ -34,6 +34,7 @@ from surfd_tpu_torch.models.unet1d import SeededDropout
 from surfd_tpu_torch.training import (
     DiffusionTrainConfig,
     DiffusionTrainer,
+    annealed_lr,
     create_train_state,
     make_optimizer,
     make_train_step,
@@ -130,6 +131,35 @@ def test_staircase_lr_matches_optax(n):
     want = float(optax.exponential_decay(1e-4, 1000, 0.9, staircase=True, end_value=1e-7)(n))
     group = make_optimizer([torch.zeros(1, requires_grad=True)], lr=1e-4).param_groups[0]
     np.testing.assert_allclose(staircase_lr(group, n), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", [0, 999, 1000, 12_345, 100_000])
+def test_annealed_lr_reads_the_staircase_at_a_device_count(n):
+    """The lr that the update reads from the device count: staircase_lr at
+    that count rounded to f32 (the fused kernel's lr), exactly."""
+    group = make_optimizer([torch.zeros(1, requires_grad=True)], lr=1e-4).param_groups[0]
+    got = annealed_lr(group, torch.tensor(n))
+    assert got.dtype == torch.float32 and got.dim() == 0
+    assert got.item() == np.float32(staircase_lr(group, n))
+
+
+def test_skip_before_an_anneal_boundary_keeps_the_applied_counts_lr():
+    """Annealing every 2 applied updates, a NaN batch at step 2 (count 1,
+    one short of the boundary): steps 1-3 update at the base lr, since the
+    skip applied nothing (a schedule on the step counter would anneal at
+    step 3), and step 4 at 0.9 of it; the count reads 1, 1, 2, 3."""
+    trainer = _small_trainer(1)
+    trainer.state = create_train_state(
+        trainer.mdm, make_optimizer(trainer.mdm.parameters(), 1e-3, decay_every=2))
+    trainer.data_iter = _batches_of(poison_at=2)
+    group = trainer.state.optimizer.param_groups[0]
+    lrs, counts = [], []
+    for k in range(1, 5):
+        trainer.run(k)
+        lrs.append(group["lr"].item())
+        counts.append(int(trainer.state.count))
+    assert counts == [1, 1, 2, 3]
+    assert lrs == [np.float32(1e-3)] * 3 + [np.float32(1e-3 * 0.9)]
 
 
 # --- train steps against JAX's make_train_step -----------------------------
